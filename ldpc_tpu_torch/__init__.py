@@ -1,0 +1,61 @@
+"""ldpc_tpu_torch — the PyTorch/CUDA port of ``ldpc_tpu`` for NVIDIA Hopper.
+
+It imports torch and numpy and never jax; module names follow the JAX
+package so each counterpart is easy to find. Ported so far: the code model,
+the RCQ quantizers, the decoder registry, the AWGN channel, the fused
+layered decode (a hand-written CUDA kernel with a plain PyTorch version
+for CPU tensors) and the two-checkpoint early exit. ROADMAP.md lists what
+is still to come.
+"""
+
+from ldpc_tpu_torch.codes import (
+    DecoderGraph,
+    LDPCCode,
+    build_graph,
+    create_array_code,
+    create_dvbs2_like_code,
+    create_dvbs2_qc_protograph,
+    create_pbrl_family,
+    create_pbrl_like_code,
+    create_pbrl_qc_protograph,
+    create_peg_code,
+    create_qc_code,
+    create_random_regular_code,
+    create_tanner_155,
+    create_test_ldpc_code,
+    gf2_rank,
+    load_alist,
+    load_protograph,
+    save_alist,
+    save_protograph,
+    tanner_155_base,
+)
+from ldpc_tpu_torch.channel import awgn_llr, bpsk_modulate, puncture_llr
+from ldpc_tpu_torch.quantizer import (
+    phase_schedule,
+    power_qdq,
+    power_thresholds,
+    staircase_qdq,
+    uniform_qdq,
+)
+from ldpc_tpu_torch.decode import (
+    DecodeResult,
+    Decoder,
+    QCGraph,
+    basic_min_sum,
+    build_qc_graph,
+    make_decoder,
+    make_two_checkpoint_decoder,
+    neural_2d_min_sum,
+    neural_2d_offset_min_sum,
+    neural_min_sum,
+    neural_offset_min_sum,
+    param_count,
+    qc_fused_decode_batch_layered,
+    rcq_min_sum,
+    weighted_oms_rcq,
+    weighted_rcq,
+)
+from ldpc_tpu_torch.interop import weights_from_numpy
+
+__version__ = "0.1.0"

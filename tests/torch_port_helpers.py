@@ -1,0 +1,52 @@
+"""Shared set-up for the parity tests of the PyTorch port (``ldpc_tpu_torch``)
+against the JAX package: one protograph, one decoder per package built
+with the same arguments, the JAX weights carried across, and channel LLRs
+made once with numpy."""
+
+import numpy as np
+
+import ldpc_tpu
+import ldpc_tpu_torch as lt
+from ldpc_tpu.decode.qc_engine import build_qc_graph as jax_build_qc_graph
+
+
+def make_base(mb, nb, lift, seed=0, density=1.0):
+    """A random protograph; ``density < 1`` blanks entries but keeps every
+    row and column non-empty (as ``tests/test_pallas_fused.py::_setup``)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, lift, size=(mb, nb))
+    if density < 1.0:
+        mask = rng.random((mb, nb)) < (1.0 - density)
+        base = np.where(mask, -1, base)
+        for i in range(mb):
+            if (base[i] >= 0).sum() == 0:
+                base[i, rng.integers(nb)] = rng.integers(lift)
+        for j in range(nb):
+            if (base[:, j] >= 0).sum() == 0:
+                base[rng.integers(mb), j] = rng.integers(lift)
+    return base
+
+
+def decoder_pair(base, lift, T, jax_options=None, torch_options=None, **kw):
+    """(JAX decoder, port decoder) for the same code and arguments; the
+    port decoder carries the JAX decoder's weights."""
+    jdec = ldpc_tpu.make_decoder(
+        ldpc_tpu.create_qc_code(base, lift=lift, max_iterations=T),
+        max_iterations=T, qc=jax_build_qc_graph(base, lift),
+        qc_options=jax_options, **kw)
+    tdec = lt.make_decoder(
+        lt.create_qc_code(base, lift=lift, max_iterations=T),
+        max_iterations=T, qc=lt.build_qc_graph(base, lift),
+        qc_options=torch_options, **kw)
+    tdec = tdec.replace_weights(lt.weights_from_numpy(
+        {k: (None if v is None else np.array(v))
+         for k, v in jdec.weights.items()}))
+    return jdec, tdec
+
+
+def channel_llr(B, n, snr_db, seed):
+    """BPSK all-zero codewords over AWGN, as float32 numpy LLRs."""
+    rng = np.random.default_rng(seed)
+    sigma2 = 10.0 ** (-snr_db / 10.0)
+    r = 1.0 + np.sqrt(sigma2) * rng.standard_normal((B, n))
+    return (2.0 * r / sigma2).astype(np.float32)
