@@ -7,22 +7,41 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 
 1. device: requires a CUDA card (there is no CPU path) and prints
    ``nvidia-smi``'s name and power limit;
-2. build: compiles the kernels from ``ldpc_tpu_torch/csrc`` with nvcc;
-3. kernel vs plain: the fused layered kernel against its plain PyTorch
+2. build: compiles the kernels from ``ldpc_tpu_torch/csrc`` with nvcc (one
+   nvcc per source, all at once, linked into one library);
+3. K1 vs plain: the fused layered kernel against its plain PyTorch
    version on the card, for every variant kind on a small code (f32 and
    bf16, lean and full, B=37) and on the bench code (5x37, lift 256);
    f32 must agree exactly in the hard outputs and to rtol 1e-6 / atol 1e-5
    in the posteriors, bf16 to >= 99.99% of bits and 99.9% of frames;
-4. main path: the bench decoder (3-bit RCQ with the DDE ladder, 8-bit
+4. bench path: the bench decoder (3-bit RCQ with the DDE ladder, 8-bit
    uniform V2C quantizer, layered, T=6, bf16, lean) under the {3, 6}
    two-checkpoint early exit with survivor budget 128, on B=32768 all-zero
    frames at 7.0 dB: 2 warm-up and 6 timed waves, the survivor budget and
-   the FER checked on every wave, exactly 2 kernel launches per wave, and
-   the first 64 frames checked against the plain path on the CPU.
+   the FER checked on every wave, exactly 2 K1 launches per wave, and the
+   first 64 frames checked against the plain path on the CPU;
+5. K4 vs plain: the fused flooding kernel against its plain version with
+   the rules of phase 3, on the small code and on the zoo's
+   ``worcq_bc3_qc9472`` decoder (5x37, lift 256, trained W-OMS-RCQ,
+   flooding T=10) at B=256, and both timed at the simulator's shapes;
+6. simulator path: that zoo decoder (bf16, lean) through ``LDPCSimulator``
+   at 6.0, 6.25 and 6.5 dB with 32768-frame compacting waves ({6, 10}
+   checkpoints, survivor budget 8192): both the overflow fallback and the
+   compacted wave must run, only K4 may launch, and the FER must fall in
+   bands around the JAX package's curve for this decoder
+   (``experiments/accuracy_bc3_results.json``); the first wave's first 64
+   frames are checked against the plain path on the CPU.
+
+Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
+read once, outputs written once) over 3.35 TB/s and its float32
+operations (counted per edge and iteration from the kernel's source, a
+transcendental as one) over 67 TFLOP/s, the H100 SXM's published rates.
+No single PyTorch call computes an LDPC decode, so ``library_ms`` is null.
 
 The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Weights are not needed (the bench
-decoder has none) and the channel LLRs come from a seeded CUDA generator.
+``{"ok": true, "device": {...}}``. The bench decoder has no weights, the
+zoo decoder's come from ``zoo/``; the channel LLRs come from seeded CUDA
+generators.
 """
 
 import dataclasses
@@ -36,6 +55,9 @@ sys.modules["jax"] = None  # the port must not need JAX; fail loudly if it does
 import numpy as np
 import torch
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+
 T, T1, S = 6, 3, 128
 B_MAIN, SNR_DB = 32768, 7.0
 BENCH_KW = dict(
@@ -43,6 +65,19 @@ BENCH_KW = dict(
     quantizer_params=((2.6474, 1.3), (3.0869, 1.3), (5.3767, 1.3)),
     v2c_quantizer_params=((4.0, 1.0), (8.0, 1.0), (12.0, 1.0)),
     max_iterations=T, layered=True)
+# phase 6: the simulator on the zoo's flooding decoder. early exit at 6:
+# at 5 the 6.5 dB waves overflow the budget too (the survivor probe below
+# prints the count for 5..8), and the compacted wave must run there
+ZOO_ENTRY, SIM_T1, SIM_WAVE, SIM_BUDGET = "worcq_bc3_qc9472", 6, 32768, 8192
+SIM_CONFIG = dict(snr_range=(6.0, 6.5), snr_step=0.25, max_frames=131072,
+                  max_errors=2000, min_frames=16384, wave_size=SIM_WAVE,
+                  early_exit_iters=SIM_T1, survivor_budget=SIM_BUDGET,
+                  seed=0, save_results=False)
+# the JAX package's FER for this decoder (experiments/
+# accuracy_bc3_results.json, "W-OMS-RCQ-bc3-trained": bf16, fused, T=10):
+# 0.822 at 6.0 dB, 0.0983 at 6.25 dB, 28 errors in 131072 frames at 6.5 dB
+FER_BANDS = {6.0: (0.772, 0.872), 6.25: (0.074, 0.123)}
+ERRORS_65 = (8, 60)
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -67,21 +102,29 @@ def small_base(mb=3, nb=8, lift=16, density=0.8, seed=0):
     return base
 
 
-def plain_on(x, dec, T_, lean):
-    """The plain PyTorch version of the fused decode on ``x``'s device."""
-    from ldpc_tpu_torch.decode.fused import _fused_layered_plain
-    return _fused_layered_plain(x, dec.weights, qc=dec.qc, spec=dec.spec,
-                                max_iterations=T_, dtype=x.dtype, lean=lean)
-
-
-def compare(name, dec, llr, dtype, lean):
-    """Kernel vs plain on the card; returns the max abs posterior diff."""
+def kernel_on(x, dec, T_, lean, flooding=False):
+    """The fused decode's wrapper (the CUDA kernel for a CUDA tensor)."""
     import ldpc_tpu_torch as lt
+    fn = (lt.qc_fused_decode_batch if flooding
+          else lt.qc_fused_decode_batch_layered)
+    return fn(x, dec.weights, qc=dec.qc, spec=dec.spec, max_iterations=T_,
+              dtype=x.dtype, lean=lean)
+
+
+def plain_on(x, dec, T_, lean, flooding=False):
+    """The plain PyTorch version of the fused decode on ``x``'s device."""
+    from ldpc_tpu_torch.decode import fused
+    fn = (fused._fused_flooding_plain if flooding
+          else fused._fused_layered_plain)
+    return fn(x, dec.weights, qc=dec.qc, spec=dec.spec, max_iterations=T_,
+              dtype=x.dtype, lean=lean)
+
+
+def compare(name, dec, llr, dtype, lean, flooding=False):
+    """Kernel vs plain on the card; returns the max abs posterior diff."""
     x = llr.to(dtype)
-    out = lt.qc_fused_decode_batch_layered(
-        x, dec.weights, qc=dec.qc, spec=dec.spec,
-        max_iterations=dec.max_iterations, dtype=dtype, lean=lean)
-    ref = plain_on(x, dec, dec.max_iterations, lean)
+    out = kernel_on(x, dec, dec.max_iterations, lean, flooding)
+    ref = plain_on(x, dec, dec.max_iterations, lean, flooding)
     torch.cuda.synchronize()
     if not (torch.equal(out.iterations, ref.iterations) and
             out.bits.dtype == ref.bits.dtype):
@@ -122,12 +165,55 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def edge_ops(spec, flooding):
+    """float32 operations per edge and iteration of K1 (layered) or K4
+    (flooding), counted from csrc/: a transcendental counts as one."""
+    from ldpc_tpu_torch.decode.engine import qdq_mode
+
+    def qdq_ops(qparams, levels):
+        mode = qdq_mode(qparams, levels, spec.closed_qdq)
+        # staircase: |x|, (levels-1) x (sub, compare, select, add), floor
+        # compare + select, sign compare + select; uniform: 19 as written
+        # in common.cuh; power: the same with 4 powf and 2 divisions
+        return {"staircase": 5 + 4 * (levels - 1), "uniform": 19,
+                "power": 25}[mode]
+
+    quantized = spec.kind in ("rcq", "wrcq", "orcq")
+    transform = {"nms": 2, "oms": 3, "rcq": 1, "wrcq": 2, "orcq": 3}[
+        spec.kind] + int(spec.alpha_in_cn)
+    cn_q = qdq_ops(spec.qparams, spec.q_levels) if quantized else 0
+    with_v = (spec.v2c_qparams is not None or
+              spec.v2c_thresholds is not None)
+    v_q = qdq_ops(spec.v2c_qparams, spec.v2c_levels) if with_v else 0
+    min_tree, leave_one_out = 8, 5  # |x|, compares, selects, count; sign
+    if flooding:
+        # CN: min tree, leave-one-out, transform, qdq, round; VN: column
+        # sum, extrinsic and v2c (each with its rounding), bv qdq, round
+        return (min_tree + leave_one_out + transform + cn_q + 1 +
+                2 + 2 + 2 + v_q + 1)
+    # layered pass 1: extrinsic, v2c, min tree; pass 2: v2c again,
+    # leave-one-out, transform, qdq, round, column sum
+    return 2 + 2 + min_tree + 2 + leave_one_out + transform + cn_q + 1 + 2
+
+
+def bound(dec, B, T_, flooding, lean=True, elt=2):
+    """(bound_ms, bound_by) of one fused decode of B frames, T_ iterations:
+    LLRs in and bits (lean) or posterior out once, success flags out."""
+    n, E = dec.code.n, dec.qc.num_blocks * dec.qc.lift
+    nbytes = B * n * (elt + (1 if lean else elt)) + B
+    ops = B * E * T_ * edge_ops(dec.spec, flooding)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "run only on an NVIDIA GPU")
     import ldpc_tpu_torch as lt
-    from ldpc_tpu_torch.decode import _build, fused
+    from ldpc_tpu_torch.decode import _build, fused, two_checkpoint_stages
+    from ldpc_tpu_torch.sim import point_generator
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -148,8 +234,8 @@ def main():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    # ---- 3: kernel vs plain version on the card
-    print("[3 kernel vs plain]")
+    # ---- 3: K1 vs its plain version on the card
+    print("[3 K1 vs plain]")
     base = small_base()
     code = lt.create_qc_code(base, lift=16, max_iterations=5)
     qc = lt.build_qc_graph(base, 16)
@@ -193,7 +279,7 @@ def main():
     torch.cuda.synchronize()
 
     n_warm, n_timed = 2, 6
-    fused.KERNEL_LAUNCHES = 0
+    fused.LAYERED_LAUNCHES = fused.FLOODING_LAUNCHES = 0
     survivors, errors = [], []
 
     def wave(i):
@@ -210,8 +296,10 @@ def main():
         out = wave(n_warm + i)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = fused.KERNEL_LAUNCHES
+    launches = fused.LAYERED_LAUNCHES
     n_waves = n_warm + n_timed
+    if fused.FLOODING_LAUNCHES:
+        raise AssertionError("the layered bench path launched K4")
 
     surv = [int(n) for n in survivors]
     errs = [int(e) for e in errors]
@@ -225,7 +313,7 @@ def main():
     if out.bits.shape != (B_MAIN, bcode.n) or out.bits.dtype != torch.int8:
         raise AssertionError(f"bad output {out.bits.shape} {out.bits.dtype}")
     rate = n_timed * B_MAIN / secs
-    print(f"[4 main path] B={B_MAIN} at {SNR_DB} dB, {n_waves} waves "
+    print(f"[4 bench path] B={B_MAIN} at {SNR_DB} dB, {n_waves} waves "
           f"({n_warm} warm-up): survivors {surv}, frame errors {errs}, "
           f"FER {fer:.3g}, kernel launches {launches}  [{card}]")
     print(f"  {rate:.1f} codewords/s over {n_timed} timed waves "
@@ -250,11 +338,113 @@ def main():
         x1, s1.weights, qc=bqc, spec=s1.spec, max_iterations=T1,
         dtype=torch.bfloat16, lean=True), 3)
     st2 = times[128][0]
-    print(f"  stage-1 kernel (B={B_MAIN}, T={T1}) {st1:.3f} ms, stage-2 "
-          f"kernel (B={S}, T={T}) {st2:.4f} ms, wave {1e3 * secs / n_timed:.3f}"
-          f" ms  [{card}]")
+    b1 = bound(dec, B_MAIN, T1, flooding=False)
+    print(f"  stage-1 kernel (B={B_MAIN}, T={T1}) {st1:.3f} ms (bound "
+          f"{b1[0]:.3f} ms, {b1[1]}), stage-2 kernel (B={S}, T={T}) "
+          f"{st2:.4f} ms, wave {1e3 * secs / n_timed:.3f} ms  [{card}]")
+
+    del llrs, x1
+    k1_bound = bound(dec, 256, T, flooding=False)
+
+    # ---- 5: K4 vs its plain version on the card
+    print("[5 K4 vs plain]")
+    for name, kw in SMALL_KINDS:
+        sdec = lt.make_decoder(code, max_iterations=5, qc=qc, **kw)
+        for dtype in (torch.float32, torch.bfloat16):
+            for lean in (False, True):
+                compare(name, sdec, llr, dtype, lean, flooding=True)
+    zdec = lt.load_pretrained(ZOO_ENTRY, qc_options=dict(
+        fused=True, dtype=torch.bfloat16, lean=True))
+    zllr = lt.awgn_llr(gen, torch.zeros((256, zdec.code.n), device=dev),
+                       6.25)
+    k4_err = compare("zoo", zdec, zllr, torch.float32, False, flooding=True)
+    compare("zoo", zdec, zllr, torch.bfloat16, True, flooding=True)
+
+    # kernel vs plain at the simulator's shapes (bf16, lean): stage 1 of a
+    # wave and its stage 2 (a full survivor budget)
+    cw = torch.zeros((SIM_WAVE, zdec.code.n), device=dev)
+    xs = lt.awgn_llr(gen, cw, 6.25).to(torch.bfloat16)
+    del cw
+    k4_times = {}
+    for B_, T_ in ((SIM_WAVE, SIM_T1), (SIM_BUDGET, zdec.max_iterations)):
+        x = xs[:B_]
+        kern = lambda: kernel_on(x, zdec, T_, True, flooding=True)
+        plain = lambda: plain_on(x, zdec, T_, True, flooding=True)
+        k_ms, p_ms = time_ms(kern, 10), time_ms(plain, 1)
+        k2_ms, p2_ms = time_ms(kern, 10), time_ms(plain, 1)
+        b_ms, b_by = bound(zdec, B_, T_, flooding=True)
+        k4_times[B_] = (k_ms, p_ms, b_ms, b_by)
+        print(f"  time B={B_} T={T_}: kernel {k_ms:.3f} / {k2_ms:.3f} ms, "
+              f"plain {p_ms:.1f} / {p2_ms:.1f} ms, bound {b_ms:.3f} ms "
+              f"({b_by})  [{card}]")
+    del xs, x
+    torch.cuda.empty_cache()
+
+    # ---- 6: the simulator at full width on the zoo decoder
+    cfg = lt.SimulationConfig(**SIM_CONFIG)
+    snrs = [float(s) for s in cfg.snr_points()]
+    # survivors of the first 6.5 dB wave after t1 iterations, t1 = 5..8
+    probe = lt.awgn_llr(point_generator(cfg.seed, snrs.index(6.5), dev),
+                        torch.zeros((SIM_WAVE, zdec.code.n), device=dev),
+                        torch.tensor(6.5, device=dev))
+    surv = {t1: int((~two_checkpoint_stages(zdec, t1)[0](
+        probe, zdec.weights).success).sum()) for t1 in range(5, 9)}
+    del probe
+    print(f"[6 simulator] {ZOO_ENTRY}: survivors of the first 6.5 dB wave "
+          f"after t1 iterations {surv} (budget {SIM_BUDGET}); "
+          f"early_exit_iters={SIM_T1}")
+    sim = lt.LDPCSimulator(cfg)
+    fused.LAYERED_LAUNCHES = fused.FLOODING_LAUNCHES = 0
+    res = sim.simulate_decoder(zdec, ZOO_ENTRY, verbose=False)
+    torch.cuda.synchronize()
+    k4_launches, k1_in_sim = fused.FLOODING_LAUNCHES, fused.LAYERED_LAUNCHES
+    kinds = sim.wave_kinds[ZOO_ENTRY]
+    for i, snr in enumerate(snrs):
+        frames, errors = res.total_frames[i], res.total_errors[i]
+        print(f"  {snr:.2f} dB: {frames} frames, {errors} frame errors, "
+              f"FER {res.frame_error_rates[i]:.6g}, BER "
+              f"{res.bit_error_rates[i]:.6g}, avg iterations "
+              f"{res.average_iterations[i]:.4f}, waves {kinds[i]}, "
+              f"{frames / res.simulation_times[i]:.1f} codewords/s  [{card}]")
+    n_comp = sum(k.get("compacted", 0) for k in kinds)
+    n_fall = sum(k.get("fallback", 0) for k in kinds)
+    print(f"  K4 launches {k4_launches}, K1 launches {k1_in_sim}, "
+          f"compacted waves {n_comp}, fallback waves {n_fall}")
+    if k1_in_sim or k4_launches != 2 * n_comp + 4 * n_fall:
+        raise AssertionError("the simulator did not run through K4 alone")
+    if not (n_comp and n_fall):
+        raise AssertionError(f"both wave kinds must run: {kinds}")
+    for i, snr in enumerate(snrs):
+        fer = res.frame_error_rates[i]
+        if snr in FER_BANDS:
+            lo, hi = FER_BANDS[snr]
+            ok = lo <= fer <= hi
+        else:
+            ok = (res.total_frames[i] == cfg.max_frames and
+                  ERRORS_65[0] <= res.total_errors[i] <= ERRORS_65[1])
+        if not ok:
+            raise AssertionError(f"FER {fer} ({res.total_errors[i]} of "
+                                 f"{res.total_frames[i]}) at {snr} dB is "
+                                 "off the JAX package's curve")
+
+    # the first wave's first 64 frames against the plain path on the CPU
+    sub = lt.awgn_llr(point_generator(cfg.seed, 0, dev),
+                      torch.zeros((SIM_WAVE, zdec.code.n), device=dev),
+                      torch.tensor(snrs[0], device=dev))[:64]
+    two = lt.make_two_checkpoint_decoder(zdec, t1=SIM_T1,
+                                         survivor_budget=SIM_BUDGET)
+    g_out, g_n = two(sub)
+    c_out, c_n = two(sub.cpu())
+    agree = (g_out.bits.cpu() == c_out.bits).float().mean().item()
+    if int(g_n) != int(c_n) or agree < 0.9999 or not torch.equal(
+            g_out.success.cpu(), c_out.success):
+        raise AssertionError(f"simulator wave vs plain on the CPU: survivors "
+                             f"{int(g_n)} vs {int(c_n)}, bits {agree}")
+    print(f"  first 64 frames of the first wave vs the CPU plain path: "
+          f"survivors {int(g_n)}, bits agree {agree:.6f}, success equal")
 
     print(card)
+    k4 = k4_times[SIM_WAVE]
     print(json.dumps({"kernels": [{
         "name": "fused_layered",
         "route": "cuda",
@@ -264,11 +454,25 @@ def main():
         "max_abs_err": max_err,
         "ms": times[256][0],
         "plain_ms": times[256][1],
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "fused_flooding",
+        "route": "cuda",
+        "source": "ldpc_tpu_torch/csrc/fused_flooding.cu",
+        "replaces": "ldpc_tpu/decode/pallas_fused.py:195",
+        "launches": k4_launches,
+        "max_abs_err": k4_err,
+        "ms": k4[0],
+        "plain_ms": k4[1],
+        "bound_ms": k4[2],
+        "bound_by": k4[3],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

@@ -3,9 +3,11 @@
 It imports torch and numpy and never jax; module names follow the JAX
 package so each counterpart is easy to find. Ported so far: the code model,
 the RCQ quantizers, the decoder registry, the AWGN channel, the fused
-layered decode (a hand-written CUDA kernel with a plain PyTorch version
-for CPU tensors) and the two-checkpoint early exit. ROADMAP.md lists what
-is still to come.
+layered and flooding decodes (hand-written CUDA kernels, each with a plain
+PyTorch version for CPU tensors), the two-checkpoint early exit, the
+pretrained-decoder zoo and the Monte-Carlo simulator. Decoders and
+simulations run on the card unless given ``device="cpu"``. ROADMAP.md
+lists what is still to come.
 """
 
 from ldpc_tpu_torch.codes import (
@@ -51,11 +53,20 @@ from ldpc_tpu_torch.decode import (
     neural_min_sum,
     neural_offset_min_sum,
     param_count,
+    qc_fused_decode_batch,
     qc_fused_decode_batch_layered,
     rcq_min_sum,
     weighted_oms_rcq,
     weighted_rcq,
 )
 from ldpc_tpu_torch.interop import weights_from_numpy
+from ldpc_tpu_torch.sim import (
+    LDPCSimulator,
+    SimulationConfig,
+    SimulationResult,
+    create_test_decoders,
+    simulate_single_snr,
+)
+from ldpc_tpu_torch.zoo import list_pretrained, load_pretrained, save_pretrained
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 // Whole-decode layered min-sum kernel for QC LDPC codes, for Hopper (sm_90a).
 //
 // Replaces ldpc_tpu/decode/pallas_fused.py::_make_layered_kernel (K1), with
-// its in-kernel quantizer _kernel_qdq (K2) and syndrome _syndrome_epilogue
-// (K3) inlined as device functions. Its plain PyTorch version, with the same
+// its in-kernel quantizer _kernel_qdq (K2, common.cuh) and syndrome
+// _syndrome_epilogue (K3) inlined. Its plain PyTorch version, with the same
 // loop, op order and rounding points, is
 // ldpc_tpu_torch/decode/fused.py::_fused_layered_plain.
 //
@@ -36,84 +36,9 @@
 // kernel then matches the plain version bit for bit, and the uniform
 // quantizer's M / C and C / M are IEEE divisions.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr float kSignTiny = 1e-30f;  // quantizer.QDQ_SIGN_TINY
-
-enum Kind { kNms = 0, kOms = 1, kRcq = 2, kWrcq = 3, kOrcq = 4 };
-enum QMode { kStaircase = 0, kUniform = 1, kPower = 2 };
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-// round a float32 value to the storage type S and back
-template <typename S>
-__device__ __forceinline__ float rnd(float v);
-template <>
-__device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// NaN-propagating min/max, as jnp.minimum / jnp.maximum
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float relu(float x) {
-  return (x < 0.0f) ? 0.0f : x;  // NaN passes through
-}
-
-// K2: quantize-dequantize of x for iteration t (quantizer.py forms)
-__device__ float qdq(float x, int t, int mode, int levels,
-                     const float* __restrict__ thr, int thr_w,
-                     const float* __restrict__ qp) {
-  const float mag = fabsf(x);
-  float snapped;
-  if (mode == kStaircase) {
-    const float* row = thr + t * thr_w;
-    snapped = 0.0f;
-    for (int j = 1; j < levels; ++j) {
-      const float step = row[j] - row[j - 1];
-      snapped = snapped + ((mag >= row[j]) ? step : 0.0f);
-    }
-  } else {
-    const float C = qp[2 * t];
-    const float M = (float)(levels - 1);
-    float idx;
-    if (mode == kUniform) {
-      const float scale = M / C;
-      const float step = C / M;
-      idx = fminf(fmaxf(floorf(mag * scale), 0.0f), M);
-      const float up = fminf(idx + 1.0f, M) * step;
-      if (mag >= up && idx < M) idx = idx + 1.0f;
-      const float down = idx * step;
-      if (mag < down) idx = fmaxf(idx - 1.0f, 0.0f);
-      snapped = idx * step;
-    } else {
-      const float gamma = qp[2 * t + 1];
-      const float r = fminf(fmaxf(mag / C, 0.0f), 1.0f);
-      idx = floorf(M * powf(r, 1.0f / gamma));
-      idx = fminf(fmaxf(idx, 0.0f), M);
-      const float up = C * powf(fminf(idx + 1.0f, M) / M, gamma);
-      if (mag >= up && idx < M) idx = idx + 1.0f;
-      const float down = C * powf(idx / M, gamma);
-      if (mag < down) idx = fmaxf(idx - 1.0f, 0.0f);
-      snapped = C * powf(idx / M, gamma);
-    }
-  }
-  snapped = (snapped < kSignTiny) ? kSignTiny : snapped;
-  return (x < 0.0f) ? -snapped : snapped;
-}
 
 struct Params {
   const void* llr;      // [B, n] S
@@ -157,6 +82,8 @@ __global__ void fused_layered_kernel(Params p) {
   __syncthreads();
 
   const float kInf = __int_as_float(0x7f800000);
+  const Variant var{p.kind, p.alpha_in_cn, p.q_mode, p.q_levels, p.thr_w,
+                    p.thr, p.qp};
   for (int t = 0; t < p.T; ++t) {
     const float* bt = p.beta + t * p.NB;
     const float* at = p.alpha + t * p.NB;
@@ -207,24 +134,8 @@ __global__ void fused_layered_kernel(Params p) {
         const float sk = 1.0f - 2.0f * (float)(nv < 0.0f);
         const float loo_mag = (argm == k) ? min2 : min1;
         const float loo_sign = row_sign * sk;
-        const float bb = bt[b];
-        float out;
-        if (p.kind == kNms) {
-          out = bb * loo_sign * loo_mag;
-        } else if (p.kind == kRcq) {
-          out = qdq(loo_sign * loo_mag, t, p.q_mode, p.q_levels, p.thr,
-                    p.thr_w, p.qp);
-        } else if (p.kind == kWrcq) {
-          out = qdq(bb * loo_sign * loo_mag, t, p.q_mode, p.q_levels, p.thr,
-                    p.thr_w, p.qp);
-        } else {  // oms, orcq
-          float off = relu(loo_mag - bb);
-          if (p.alpha_in_cn) off = off - at[b];
-          out = loo_sign * off;
-          if (p.kind == kOrcq)
-            out = qdq(out, t, p.q_mode, p.q_levels, p.thr, p.thr_w, p.qp);
-        }
-        const float nw = rnd<S>(out);
+        const float nw =
+            rnd<S>(c2v(var, loo_sign, loo_mag, bt[b], at[b], t));
         st(&colsum[idx], ext + nw);
         st(&C[(size_t)b * L + v], nw);
       }

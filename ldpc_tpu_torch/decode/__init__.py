@@ -13,5 +13,11 @@ from ldpc_tpu_torch.decode.variants import (
     weighted_rcq,
 )
 from ldpc_tpu_torch.decode.qc_engine import QCGraph, build_qc_graph
-from ldpc_tpu_torch.decode.fused import qc_fused_decode_batch_layered
-from ldpc_tpu_torch.decode.early_exit import make_two_checkpoint_decoder
+from ldpc_tpu_torch.decode.fused import (
+    qc_fused_decode_batch,
+    qc_fused_decode_batch_layered,
+)
+from ldpc_tpu_torch.decode.early_exit import (
+    make_two_checkpoint_decoder,
+    two_checkpoint_stages,
+)

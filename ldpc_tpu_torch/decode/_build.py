@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``ldpc_tpu_torch/csrc/`` are compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes``. The library lands in ``ldpc_tpu_torch/_build/``, named by a
-hash of the source and the flags, so it is built at first use and rebuilt
-whenever either changes. A missing ``nvcc`` or a failed build raises.
+Every ``*.cu`` source under ``ldpc_tpu_torch/csrc/`` is compiled with
+``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together;
+the objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``. The library lands in ``ldpc_tpu_torch/_build/``,
+named by a hash of all the sources (``*.cu`` and ``*.cuh``) and the flags,
+so it is built at first use and rebuilt whenever any of them changes. A
+missing ``nvcc`` or a failed build raises.
 
 Flags: ``-fmad=false`` and no ``--use_fast_math`` keep every float32
-operation separately rounded and every division IEEE, so the f32 kernel
-can match its plain PyTorch version bit for bit.
+operation separately rounded and every division IEEE, so the f32 kernels
+can match their plain PyTorch versions bit for bit.
 """
 
 from __future__ import annotations
@@ -21,19 +23,25 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "NVCC_FLAGS"]
+__all__ = ["load_library", "library_path", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "fused_layered.cu"
+_CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# ldpc_fused_layered's C signature (csrc/fused_layered.cu)
-_FUSED_ARGTYPES = [_P] * 8 + [_I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 14 + [_P]
+# the C signatures of the kernels' entry points
+_ARGTYPES = {
+    # csrc/fused_layered.cu
+    "ldpc_fused_layered":
+        [_P] * 8 + [_I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 14 + [_P],
+    # csrc/fused_flooding.cu
+    "ldpc_fused_flooding":
+        [_P] * 7 + [_I, _P, _P, _I, _P] + [_P] * 5 + [_I] * 14 + [_P],
+}
 
 
 def _nvcc() -> str:
@@ -46,9 +54,29 @@ def _nvcc() -> str:
                        "the CUDA kernels of ldpc_tpu_torch cannot be built")
 
 
+def _sources():
+    return sorted(_CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return _BUILD / f"fused_layered_{h.hexdigest()[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cu*")):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return _BUILD / f"ldpc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Start every command at once; raise on the first that fails.
+    Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,15 +86,21 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
+        nvcc = _nvcc()
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [_BUILD / f"{tag}.{src.stem}.o" for src in _sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(_sources(), objs)])
+        tmp = so.with_name(f"{tag}.tmp.so")
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        for o in objs:
+            o.unlink()
+        so.with_suffix(".log").write_text(log)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    lib.ldpc_fused_layered.argtypes = _FUSED_ARGTYPES
-    lib.ldpc_fused_layered.restype = ctypes.c_int
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -1,9 +1,9 @@
 """Two-checkpoint early-exit decoding (counterpart of
 ``ldpc_tpu/decode/early_exit.py``).
 
-The fused layered decode checks the syndrome once, after the final
-iteration. The {t1, T} two-checkpoint decoder restores early termination
-around it:
+The fused decodes (layered and flooding) check the syndrome once, after
+the final iteration. The {t1, T} two-checkpoint decoder restores early
+termination around it:
 
 1. stage 1 decodes every frame for ``t1`` iterations; frames whose
    syndrome passes there are done;
@@ -27,20 +27,18 @@ import torch
 
 from ldpc_tpu_torch.decode.engine import DecodeResult
 
-__all__ = ["make_two_checkpoint_decoder"]
+__all__ = ["make_two_checkpoint_decoder", "two_checkpoint_stages"]
 
 
-def make_two_checkpoint_decoder(decoder, *, t1: int, survivor_budget: int):
-    """Build ``fn(llr, weights=None) -> (DecodeResult, n_survivors)`` with
-    the {t1, T} checkpoint schedule for a fused-kernel QC decoder
-    (``qc_options={'fused': True, ...}``)."""
+def two_checkpoint_stages(decoder, t1: int):
+    """The two decodes of the {t1, T} schedule of a fused-kernel QC decoder
+    (``qc_options={'fused': True, ...}``): ``(stage1, stage2)``, each
+    ``(llr, weights) -> DecodeResult`` taking the decoder's full [T, ...]
+    weights; stage 1 decodes for ``t1`` iterations with its single check
+    there, stage 2 for T."""
     T = decoder.max_iterations
     if not 0 < t1 < T:
         raise ValueError(f"need 0 < t1={t1} < max_iterations={T}")
-    S = int(survivor_budget)
-    if S <= 0:
-        raise ValueError(f"survivor_budget must be positive, got {S}")
-
     # Decoder.truncated refuses fused decoders (their check schedule is
     # {T}), so truncate without the options and re-attach them: stage 1
     # runs the fused decode with its single check at t1
@@ -51,8 +49,22 @@ def make_two_checkpoint_decoder(decoder, *, t1: int, survivor_budget: int):
     short = dataclasses.replace(short, qc_options=opts or None)
     full = dataclasses.replace(decoder, qc_options=opts or None)
 
-    def _cut(w):
-        return {k: (None if a is None else a[:t1]) for k, a in w.items()}
+    def stage1(llr, w):
+        return short(llr, {k: (None if a is None else a[:t1])
+                           for k, a in w.items()})
+
+    return stage1, full
+
+
+def make_two_checkpoint_decoder(decoder, *, t1: int, survivor_budget: int):
+    """Build ``fn(llr, weights=None) -> (DecodeResult, n_survivors)`` with
+    the {t1, T} checkpoint schedule for a fused-kernel QC decoder
+    (``qc_options={'fused': True, ...}``)."""
+    T = decoder.max_iterations
+    stage1, full = two_checkpoint_stages(decoder, t1)
+    S = int(survivor_budget)
+    if S <= 0:
+        raise ValueError(f"survivor_budget must be positive, got {S}")
 
     def _merge(dst, src2, tgt, src_row, any_valid):
         # dst[tgt[s]] = src2[src_row[s]] for every slot. Slots past the
@@ -69,7 +81,7 @@ def make_two_checkpoint_decoder(decoder, *, t1: int, survivor_budget: int):
         w = decoder.weights if weights is None else weights
         B = llr.shape[0]
         dev = llr.device
-        out1 = short(llr, _cut(w))
+        out1 = stage1(llr, w)
         conv = out1.success
         unconv = ~conv
         n_surv = unconv.sum(dtype=torch.int32)

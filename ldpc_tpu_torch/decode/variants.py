@@ -14,14 +14,19 @@ type  beta (CN weight) keyed by                alpha (VN weight) keyed by
 ====  =======================================  =========================
 
 The spec arrays ``make_decoder`` builds equal the JAX package's for the
-same arguments. Initial weights come from ``torch.Generator(seed)`` with
-the same means and standard deviation as ``jax.random`` draws there, but
-the values differ; use ``ldpc_tpu_torch.interop.weights_from_numpy`` to
-run the two packages on identical weights.
+same arguments. Initial weights come from a ``torch.Generator`` seeded
+with ``seed`` on the decoder's device, with the same means and standard
+deviation as the ``jax.random`` draws there, but the values differ; use
+``ldpc_tpu_torch.interop.weights_from_numpy`` to run the two packages on
+identical weights.
 
-Of the call routes, only the inference path of the main slice is ported:
-a layered QC decoder with ``qc_options={"fused": True, ...}``, called
-without ``ste``/``return_trajectory``, runs the fused layered decode
+A decoder lives on a device, the card (``"cuda"``) unless the caller asks
+for ``"cpu"``: its weights are kept there, and on a machine without a
+card ``make_decoder`` raises rather than fall back to the CPU.
+
+Of the call routes, only the fused inference paths are ported: a QC
+decoder with ``qc_options={"fused": True, ...}``, called without
+``ste``/``return_trajectory``, runs the fused layered or flooding decode
 (``decode/fused.py``). Every other route raises ``NotImplementedError``
 naming the ROADMAP.md Queue 1 item that will port it.
 """
@@ -61,6 +66,17 @@ def _not_ported(route: str, item: str):
     return NotImplementedError(
         f"{route} is not ported to ldpc_tpu_torch yet (ROADMAP.md Queue 1: "
         f"{item}); use ldpc_tpu for it")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist (the port
+    never falls back to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} needs a CUDA card and none is visible; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return device
 
 
 def _bucket_wiring(graph: DecoderGraph, sharing_type: int, offset_style: bool):
@@ -120,9 +136,10 @@ class Decoder:
     """A configured decoder: static spec + weights + call surface.
 
     ``weights`` is ``{"beta": [T, n_beta] | None, "alpha": [T, n_alpha] |
-    None}`` of float32 tensors. ``qc_options`` carries the fused path's
-    options (``fused``, ``dtype``, ``lean``, ``closed_qdq``; the TPU-only
-    ``batch_tile``/``natural``/``interpret`` are accepted and ignored).
+    None}`` of float32 tensors on ``device``. ``qc_options`` carries the
+    fused path's options (``fused``, ``dtype``, ``lean``, ``closed_qdq``,
+    ``check_every``; the TPU-only ``batch_tile``/``natural``/``interpret``
+    are accepted and ignored).
     """
 
     name: str
@@ -136,6 +153,7 @@ class Decoder:
     qc: Optional[QCGraph] = None
     qc_options: Optional[dict] = None
     recipe: Optional[dict] = None
+    device: torch.device = torch.device("cuda")
 
     def __call__(self, llr: torch.Tensor, weights=None, *, ste: bool = False,
                  return_trajectory: bool = False) -> DecodeResult:
@@ -165,12 +183,21 @@ class Decoder:
                               "(decode_batch_layered)",
                               "general and bucketed engines")
         elif self.qc is not None:
-            if opts.get("fused"):
-                raise _not_ported("the fused flooding kernel "
-                                  "(qc_fused_decode_batch, K4)",
-                                  "fused flooding decode")
-            raise _not_ported("the flooding QC engine (qc_decode_batch)",
-                              "QC engines as torch ops")
+            if not opts.pop("fused", False):
+                raise _not_ported("the flooding QC engine (qc_decode_batch)",
+                                  "QC engines as torch ops")
+            from ldpc_tpu_torch.decode.fused import qc_fused_decode_batch
+            # the kernel checks the syndrome once, at T
+            ce = opts.pop("check_every", self.max_iterations)
+            if ce != self.max_iterations:
+                raise ValueError(
+                    f"fused kernel checks the syndrome once at T="
+                    f"{self.max_iterations}; qc_options check_every={ce} is "
+                    "incompatible")
+            opts.pop("unroll", None)
+            out = qc_fused_decode_batch(
+                llr, w, qc=self.qc, spec=self.spec,
+                max_iterations=self.max_iterations, **opts)
         else:
             raise _not_ported("the general flooding engine (decode_batch)",
                               "general and bucketed engines")
@@ -225,7 +252,11 @@ class Decoder:
                                    qc_options=(opts or None))
 
     def replace_weights(self, weights) -> "Decoder":
-        return dataclasses.replace(self, weights=weights)
+        """This decoder with ``weights``, moved to its device."""
+        return dataclasses.replace(self, weights={
+            k: (None if w is None else
+                torch.as_tensor(w, dtype=torch.float32, device=self.device))
+            for k, w in weights.items()})
 
 
 def param_count(weights) -> int:
@@ -236,11 +267,11 @@ def _init_weights(gen: torch.Generator, T: int, n_beta: int, n_alpha: int,
                   *, beta_mean: float, alpha_mean: float,
                   std: float = 0.1) -> Dict[str, Optional[torch.Tensor]]:
     w: Dict[str, Optional[torch.Tensor]] = {"beta": None, "alpha": None}
+    draw = lambda n: torch.randn((T, n), generator=gen, device=gen.device)
     if n_beta:
-        w["beta"] = beta_mean + std * torch.randn((T, n_beta), generator=gen)
+        w["beta"] = beta_mean + std * draw(n_beta)
     if n_alpha:
-        w["alpha"] = alpha_mean + std * torch.randn((T, n_alpha),
-                                                    generator=gen)
+        w["alpha"] = alpha_mean + std * draw(n_alpha)
     return w
 
 
@@ -266,15 +297,19 @@ def make_decoder(
     bucketed: bool = False,
     per_layer: bool = False,
     closed_qdq: bool = False,
+    device="cuda",
 ) -> Decoder:
     """Build any decoder variant (arguments as ``ldpc_tpu.make_decoder``).
 
     kind: 'ms' (fixed factor) | 'nms' | 'oms' | 'rcq' | 'wrcq' | 'orcq'.
     sharing_type: None/0 = per-edge; 1-4 = degree sharing. ``qc`` switches
     to the QC structure (base rows are the layers when ``layered``).
+    ``device``: where the decoder's weights live and its initial weights
+    are drawn (the card unless ``"cpu"``; raises if there is no card).
     Initial weights: see the module docstring. ``bucketed=True`` (the
     degree-bucketed engine) is not ported yet and raises.
     """
+    device = resolve_device(device)
     if bucketed and (qc is not None or layered):
         raise ValueError("bucketed engine is flooding-only and non-QC; "
                          "drop bucketed=, or drop qc=/layered=")
@@ -298,7 +333,7 @@ def make_decoder(
                          "('nms'/'oms'/'wrcq'/'orcq')")
     graph = graph if graph is not None else build_graph(code)
     T = max_iterations if max_iterations is not None else code.max_iterations
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
 
     offset_style = kind in ("oms", "orcq")
     thresholds = None
@@ -401,7 +436,7 @@ def make_decoder(
     return Decoder(
         name=dname, code=code, graph=graph, spec=spec, max_iterations=T,
         weights=weights, layered=layered, layer_checks=layer_checks, qc=qc,
-        qc_options=qc_options, recipe=recipe)
+        qc_options=qc_options, recipe=recipe, device=device)
 
 
 # -- reference-parity constructors -----------------------------------------

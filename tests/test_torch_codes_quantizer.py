@@ -21,23 +21,10 @@ import ldpc_tpu_torch as lt
 from ldpc_tpu import quantizer as jq
 from ldpc_tpu.decode.qc_engine import build_qc_graph as jax_build_qc_graph
 from ldpc_tpu_torch import quantizer as tq
+from torch_port_helpers import assert_same_fields as _assert_same_fields
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_BASE = np.random.default_rng(0).integers(0, 256, size=(5, 37))
-
-
-def _assert_same_fields(a, b):
-    fa = {f.name: getattr(a, f.name) for f in dataclasses.fields(a)}
-    fb = {f.name: getattr(b, f.name) for f in dataclasses.fields(b)}
-    assert fa.keys() == fb.keys()
-    for k in fa:
-        x, y = fa[k], fb[k]
-        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
-            assert x is not None and y is not None, k
-            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), k)
-            assert np.asarray(x).dtype == np.asarray(y).dtype, k
-        else:
-            assert x == y, k
 
 
 @pytest.mark.parametrize("source", ["bench"] + sorted(
@@ -79,7 +66,8 @@ def test_decoder_specs_equal(kw):
         ldpc_tpu.create_qc_code(base, lift=32, max_iterations=T),
         qc=jax_build_qc_graph(base, 32), **kw)
     tdec = lt.make_decoder(lt.create_qc_code(base, lift=32, max_iterations=T),
-                           qc=lt.build_qc_graph(base, 32), **kw)
+                           qc=lt.build_qc_graph(base, 32), device="cpu",
+                           **kw)
     _assert_same_fields(tdec.spec, jdec.spec)
     assert tdec.name == jdec.name and tdec.recipe == jdec.recipe
     assert tdec.max_iterations == jdec.max_iterations == T
@@ -103,13 +91,16 @@ def test_general_layers_and_constructors_equal(test_code):
                  "rcq_min_sum", "weighted_rcq", "weighted_oms_rcq"):
         j = getattr(ldpc_tpu, ctor)(test_code, max_iterations=10,
                                     layered=True)
-        t = getattr(lt, ctor)(tcode, max_iterations=10, layered=True)
+        t = getattr(lt, ctor)(tcode, max_iterations=10, layered=True,
+                              device="cpu")
         _assert_same_fields(t.spec, j.spec)
         np.testing.assert_array_equal(t.layer_checks, j.layer_checks)
         assert t.param_count() == j.param_count() and t.name == j.name
     # the reference's parameter goldens (N-NMS / 2D types 1-4, T=10)
-    counts = [lt.neural_min_sum(tcode, max_iterations=10).param_count()] + [
-        lt.neural_2d_min_sum(tcode, st, max_iterations=10).param_count()
+    counts = [lt.neural_min_sum(tcode, max_iterations=10,
+                                device="cpu").param_count()] + [
+        lt.neural_2d_min_sum(tcode, st, max_iterations=10,
+                             device="cpu").param_count()
         for st in (1, 2, 3, 4)]
     assert counts == [130, 40, 40, 20, 20]
 

@@ -1,8 +1,8 @@
 """The port's main path end to end through its public entry points
 (``make_decoder``, the ``Decoder`` call, ``make_two_checkpoint_decoder``)
 with the bench's decoder arguments, against ``ldpc_tpu`` with the same
-arguments; plus the channel, the jax-free import, and the refusals of the
-routes not ported yet.
+arguments; plus the channel, the jax-free import, the device default, and
+the refusals of the routes not ported yet.
 
 The code is a 2x6 full base with lift 32 (the bench's 5x37, lift 256
 shape class, cut to CPU size). Messages are f32 so that hard outputs can be
@@ -41,7 +41,7 @@ def test_slice_matches_jax_end_to_end():
         lt.create_qc_code(base, lift=32, max_iterations=T),
         qc=lt.build_qc_graph(base, 32),
         qc_options=dict(fused=True, batch_tile=16, dtype=torch.float32,
-                        lean=True, natural=True), **BENCH_KW)
+                        lean=True, natural=True), device="cpu", **BENCH_KW)
     llr = channel_llr(40, tdec.code.n, 5.0, seed=3)
 
     ref = jdec(jnp.asarray(llr))
@@ -97,7 +97,8 @@ def test_awgn_llr_reproducible_and_distributed():
 
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
-            "import ldpc_tpu_torch, ldpc_tpu_torch.decode._build; "
+            "import ldpc_tpu_torch, ldpc_tpu_torch.decode._build, "
+            "ldpc_tpu_torch.zoo, ldpc_tpu_torch.sim; "
             "assert 'ldpc_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True)
 
@@ -108,21 +109,70 @@ def test_unported_routes_refuse():
     qc = lt.build_qc_graph(base, 16)
     llr = torch.zeros((2, code.n))
     fused = dict(fused=True, dtype=torch.float32)
+    mk = lambda **kw: lt.make_decoder(code, kind="ms", device="cpu", **kw)
     for dec, kw in [
-        (lt.make_decoder(code, kind="ms", qc=qc, layered=True), {}),
-        (lt.make_decoder(code, kind="ms", qc=qc), {}),
-        (lt.make_decoder(code, kind="ms", qc=qc, qc_options=fused), {}),
-        (lt.make_decoder(code, kind="ms", layered=True), {}),
-        (lt.make_decoder(code, kind="ms"), {}),
-        (lt.make_decoder(code, kind="ms", qc=qc, layered=True,
-                         qc_options=fused), dict(ste=True)),
-        (lt.make_decoder(code, kind="ms", qc=qc, layered=True,
-                         qc_options=fused), dict(return_trajectory=True)),
+        (mk(qc=qc, layered=True), {}),
+        (mk(qc=qc), {}),
+        (mk(layered=True), {}),
+        (mk(), {}),
+        (mk(qc=qc, layered=True, qc_options=fused), dict(ste=True)),
+        (mk(qc=qc, layered=True, qc_options=fused),
+         dict(return_trajectory=True)),
+        (mk(qc=qc, qc_options=fused), dict(ste=True)),
     ]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             dec(llr, **kw)
     with pytest.raises(NotImplementedError):
-        lt.make_decoder(code, kind="ms", bucketed=True)
+        mk(bucketed=True)
+    # the simulator's unported paths: compaction (or stage1_fused) with a
+    # non-fused parent, mesh sharding, plots
+    cfg = dict(max_frames=4, wave_size=2, device="cpu")
+    for sim_kw in (dict(early_exit_iters=2), dict(early_exit_iters=2,
+                                                  stage1_fused=True)):
+        with pytest.raises(NotImplementedError, match="QC engines"):
+            lt.simulate_single_snr(mk(qc=qc), 3.0,
+                                   lt.SimulationConfig(**cfg, **sim_kw))
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        lt.LDPCSimulator(lt.SimulationConfig(**cfg), mesh=object())
+    sim = lt.LDPCSimulator(lt.SimulationConfig(**cfg))
+    for plot in ("plot_fer_curves", "plot_ber_curves",
+                 "plot_iteration_curves", "plot_timing_curves"):
+        with pytest.raises(NotImplementedError, match="report/"):
+            getattr(sim, plot)()
+    # a dropped decoder never hides an unported route
+    with pytest.raises(NotImplementedError):
+        sim.simulate_multiple_decoders({"general": mk()}, verbose=False)
+
+
+def test_device_defaults_to_the_card(monkeypatch):
+    """Without a card the entry points raise instead of running on the
+    CPU; with device="cpu" the decoder, its weights and the zoo load live
+    there, and replace_weights keeps weights on the decoder's device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = make_base(2, 6, 16, seed=2)
+    code = lt.create_qc_code(base, lift=16, max_iterations=4)
+    qc = lt.build_qc_graph(base, 16)
+    for call in (lambda: lt.make_decoder(code, kind="orcq", sharing_type=2,
+                                         qc=qc),
+                 lambda: lt.load_pretrained("worcq_bc3_layered_t4"),
+                 lambda: lt.simulate_single_snr(
+                     lt.make_decoder(code, kind="ms", qc=qc, device="cpu"),
+                     3.0, lt.SimulationConfig())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    dec = lt.make_decoder(code, kind="orcq", sharing_type=2, qc=qc,
+                          device="cpu")
+    assert dec.device == torch.device("cpu")
+    assert all(w.device.type == "cpu" for w in dec.weights.values())
+    moved = dec.replace_weights({k: np.ones((4, w.shape[1]))
+                                 for k, w in dec.weights.items()})
+    assert all(w.device.type == "cpu" and w.dtype == torch.float32
+               for w in moved.weights.values())
+    # the same seed draws the same weights as before the device argument
+    gen = torch.Generator().manual_seed(0)
+    assert torch.equal(dec.weights["beta"],
+                       0.1 * torch.randn((4, dec.weights["beta"].shape[1]),
+                                         generator=gen))
 
 
 def test_fused_wrapper_refuses_other_devices(monkeypatch):
@@ -136,9 +186,12 @@ def test_fused_wrapper_refuses_other_devices(monkeypatch):
     monkeypatch.setattr(fused, "_fused_layered_plain", no_plain)
     base = make_base(2, 6, 16, seed=2)
     code = lt.create_qc_code(base, lift=16, max_iterations=4)
-    dec = lt.make_decoder(code, kind="ms", qc=lt.build_qc_graph(base, 16),
-                          layered=True, qc_options=dict(fused=True))
-    before = fused.KERNEL_LAUNCHES
-    with pytest.raises(ValueError, match="device"):
-        dec(torch.zeros((2, code.n), device="meta"))
-    assert fused.KERNEL_LAUNCHES == before
+    monkeypatch.setattr(fused, "_fused_flooding_plain", no_plain)
+    for layered in (True, False):
+        dec = lt.make_decoder(code, kind="ms", qc=lt.build_qc_graph(base, 16),
+                              layered=layered, qc_options=dict(fused=True),
+                              device="cpu")
+        before = (fused.LAYERED_LAUNCHES, fused.FLOODING_LAUNCHES)
+        with pytest.raises(ValueError, match="device"):
+            dec(torch.zeros((2, code.n), device="meta"))
+        assert (fused.LAYERED_LAUNCHES, fused.FLOODING_LAUNCHES) == before

@@ -3,6 +3,8 @@ against the JAX package: one protograph, one decoder per package built
 with the same arguments, the JAX weights carried across, and channel LLRs
 made once with numpy."""
 
+import dataclasses
+
 import numpy as np
 
 import ldpc_tpu
@@ -28,8 +30,8 @@ def make_base(mb, nb, lift, seed=0, density=1.0):
 
 
 def decoder_pair(base, lift, T, jax_options=None, torch_options=None, **kw):
-    """(JAX decoder, port decoder) for the same code and arguments; the
-    port decoder carries the JAX decoder's weights."""
+    """(JAX decoder, port decoder on the CPU) for the same code and
+    arguments; the port decoder carries the JAX decoder's weights."""
     jdec = ldpc_tpu.make_decoder(
         ldpc_tpu.create_qc_code(base, lift=lift, max_iterations=T),
         max_iterations=T, qc=jax_build_qc_graph(base, lift),
@@ -37,7 +39,7 @@ def decoder_pair(base, lift, T, jax_options=None, torch_options=None, **kw):
     tdec = lt.make_decoder(
         lt.create_qc_code(base, lift=lift, max_iterations=T),
         max_iterations=T, qc=lt.build_qc_graph(base, lift),
-        qc_options=torch_options, **kw)
+        qc_options=torch_options, device="cpu", **kw)
     tdec = tdec.replace_weights(lt.weights_from_numpy(
         {k: (None if v is None else np.array(v))
          for k, v in jdec.weights.items()}))
@@ -50,3 +52,19 @@ def channel_llr(B, n, snr_db, seed):
     sigma2 = 10.0 ** (-snr_db / 10.0)
     r = 1.0 + np.sqrt(sigma2) * rng.standard_normal((B, n))
     return (2.0 * r / sigma2).astype(np.float32)
+
+
+def assert_same_fields(a, b):
+    """Two dataclasses (a port one and its JAX twin) hold equal fields;
+    numpy arrays equal in value and dtype."""
+    fa = {f.name: getattr(a, f.name) for f in dataclasses.fields(a)}
+    fb = {f.name: getattr(b, f.name) for f in dataclasses.fields(b)}
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        x, y = fa[k], fb[k]
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            assert x is not None and y is not None, k
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), k)
+            assert np.asarray(x).dtype == np.asarray(y).dtype, k
+        else:
+            assert x == y, k

@@ -57,12 +57,12 @@ def test_kernel_matches_plain(card, name, lean, dtype):
     llr = lt.awgn_llr(gen, torch.zeros((37, dec.code.n), device=card), 2.5)
     args = dict(qc=dec.qc, spec=dec.spec, max_iterations=T, dtype=dtype,
                 lean=lean)
-    before = fused.KERNEL_LAUNCHES
+    before = fused.LAYERED_LAUNCHES
     out = lt.qc_fused_decode_batch_layered(llr, dec.weights, **args)
-    assert fused.KERNEL_LAUNCHES == before + 1
+    assert fused.LAYERED_LAUNCHES == before + 1
     ref = fused._fused_layered_plain(llr, dec.weights, **args)
     torch.cuda.synchronize()
-    assert fused.KERNEL_LAUNCHES == before + 1  # the plain version counts 0
+    assert fused.LAYERED_LAUNCHES == before + 1  # the plain version counts 0
     assert out.bits.dtype == ref.bits.dtype
     assert torch.equal(out.iterations, ref.iterations)
     if dtype == torch.float32:
