@@ -30,13 +30,30 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    compacted wave must run, only K4 may launch, and the FER must fall in
    bands around the JAX package's curve for this decoder
    (``experiments/accuracy_bc3_results.json``); the first wave's first 64
-   frames are checked against the plain path on the CPU.
+   frames are checked against the plain path on the CPU;
+7. K5/K6 vs plain: the row and column kernels against their plain
+   versions, single launches on every row and column of the small code
+   (all kinds, f32 and bf16) and on the zoo's row 0 and column 0 (B=256),
+   the whole row/column decode against its plain driver, and one launch
+   of each timed at B=32768 (bf16);
+8. row/column path: the zoo decoder through ``qc_pallas_decode_batch`` at
+   B=32768, bf16, T=10, ``check_every=1``, 6.25 dB: exactly T*mb = 50 K5
+   and T*nb = 370 K6 launches and no K1 or K4, FER in the 6.25 dB band;
+   the same LLRs through the engine route (``load_pretrained(...,
+   qc_options={"dtype": bf16})``), held to it statistically (the two round
+   at different points in bf16); the first 64 frames against the CPU
+   plain path;
+9. non-fused compaction: one 32768-frame wave at 6.5 dB of the zoo
+   decoder with ``check_every=5`` through ``LDPCSimulator``
+   (``early_exit_iters=5``, ``stage1_fused``, survivor budget 16384): it
+   must be compacted, launch K4 once, and count 0-20 frame errors.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s and its float32
 operations (counted per edge and iteration from the kernel's source, a
 transcendental as one) over 67 TFLOP/s, the H100 SXM's published rates.
-No single PyTorch call computes an LDPC decode, so ``library_ms`` is null.
+No single PyTorch call computes an LDPC decode or one of its row or
+column updates, so ``library_ms`` is null.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The bench decoder has no weights, the
@@ -78,6 +95,25 @@ SIM_CONFIG = dict(snr_range=(6.0, 6.5), snr_step=0.25, max_frames=131072,
 # 0.822 at 6.0 dB, 0.0983 at 6.25 dB, 28 errors in 131072 frames at 6.5 dB
 FER_BANDS = {6.0: (0.772, 0.872), 6.25: (0.074, 0.123)}
 ERRORS_65 = (8, 60)
+# phases 7-9: the row/column path (K5, K6) and the engine route on the
+# same zoo decoder. Phase 8: B=32768 frames at 6.25 dB through K5/K6, T=10,
+# check_every=1, FER in the 6.25 dB band. Phase 9: one compacting wave of
+# the non-fused decoder (check_every=5) with stage 1 on K4; the JAX curve
+# expects about 7 frame errors in 32768 at 6.5 dB
+RC_B, RC_SNR, RC_T = 32768, 6.25, 10
+NF_CONFIG = dict(snr_range=(6.5, 6.5), snr_step=0.25, max_frames=32768,
+                 max_errors=10 ** 9, min_frames=0, wave_size=32768,
+                 early_exit_iters=5, survivor_budget=16384,
+                 stage1_fused=True, seed=0, save_results=False)
+NF_ERRORS = (0, 20)
+# the K5/K6 path vs the engine route on the same LLRs (bf16): least shares
+# of equal bits and of equal success flags. The two round at different
+# points (K6 keeps f32 sums), so marginal frames go either way: 99.948% /
+# 98.596% on the card; ldpc_tpu's own two routes on this decoder, 256
+# frames on the CPU: 99.957% / 253 of 256 (tests/test_torch_qc_rowcol.py).
+# Their frame errors must also pass a paired (McNemar) test: the frames
+# only one route fails split evenly
+RC_AGREE = (0.999, 0.98)
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -125,6 +161,13 @@ def compare(name, dec, llr, dtype, lean, flooding=False):
     x = llr.to(dtype)
     out = kernel_on(x, dec, dec.max_iterations, lean, flooding)
     ref = plain_on(x, dec, dec.max_iterations, lean, flooding)
+    return agree(name, out, ref, dtype, lean)
+
+
+def agree(name, out, ref, dtype, lean=False):
+    """Hold a decode's result to its reference: f32 hard outputs exact and
+    posteriors to rtol 1e-6 / atol 1e-5, bf16 >= 99.99% of bits and 99.9%
+    of frames. Returns the max abs posterior diff (f32, full)."""
     torch.cuda.synchronize()
     if not (torch.equal(out.iterations, ref.iterations) and
             out.bits.dtype == ref.bits.dtype):
@@ -146,7 +189,7 @@ def compare(name, dec, llr, dtype, lean, flooding=False):
             raise AssertionError(f"{name}: bf16 agreement {agree} bits, "
                                  f"{frames} frames")
     print(f"  {name:16s} {str(dtype)[6:]:8s} {'lean' if lean else 'full'}"
-          f"  B={llr.shape[0]}  bits agree {agree:.6f}  frames agree "
+          f"  B={out.bits.shape[0]}  bits agree {agree:.6f}  frames agree "
           f"{frames:.4f}  max|dpost| {err:g}  success "
           f"{out.success.float().mean().item():.3f}")
     return err
@@ -207,12 +250,300 @@ def bound(dec, B, T_, flooding, lean=True, elt=2):
             "bytes" if t_bytes > t_ops else "operations")
 
 
+def rowcol_ops(spec):
+    """float32 operations of K5 per edge, and of K6 per edge and per
+    variable, counted from csrc/qc_cn.cu and csrc/qc_vn.cu with their
+    quantizer routing (staircase up to 16 levels, power law above); a
+    transcendental counts as one."""
+    def qdq_ops(levels):
+        return 5 + 4 * (levels - 1) if levels <= 16 else 25
+
+    quantized = spec.kind in ("rcq", "wrcq", "orcq")
+    transform = {"nms": 2, "oms": 3, "rcq": 1, "wrcq": 2, "orcq": 3}[
+        spec.kind] + int(spec.alpha_in_cn)
+    with_v = (spec.v2c_qparams is not None or
+              spec.v2c_thresholds is not None)
+    v_q = qdq_ops(spec.v2c_levels) if with_v else 0
+    # K5: min tree, leave-one-out, transform, qdq, round
+    cn = 8 + 5 + transform + (qdq_ops(spec.q_levels) if quantized else 0) + 1
+    # K6 per edge: column-sum add, extrinsic, v2c (alpha multiply unless
+    # OMS), qdq, round; per variable: posterior add, qdq, round
+    vn_edge = 1 + 1 + (1 if spec.alpha_in_cn else 2) + v_q + 1
+    return cn, vn_edge, 1 + v_q + 1
+
+
+def rowcol_bounds(dec, B, elt=2):
+    """(bound_ms, bound_by) of one K5 launch on base row 0 and of one K6
+    launch on base column 0, at B frames of elt-byte storage: each input
+    message read once and each output written once, and the operations of
+    :func:`rowcol_ops`."""
+    qc, L = dec.qc, dec.qc.lift
+    dc, dv = len(qc.row_blocks[0]), len(qc.col_blocks[0])
+    cn, vn_edge, vn_var = rowcol_ops(dec.spec)
+    out = []
+    for nbytes, ops in ((2 * dc * L * B * elt, cn * dc * L * B),
+                        ((2 * dv + 2) * L * B * elt,
+                         (vn_edge * dv + vn_var) * L * B)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        out.append((1e3 * max(t_bytes, t_ops),
+                    "bytes" if t_bytes > t_ops else "operations"))
+    return out
+
+
+class RowColState:
+    """The inputs and outputs of single K5/K6 launches at iteration t: the
+    channel LLRs as storage tiles, the first v2c state, and c2v after the
+    plain K5 on every row (the input of K6)."""
+
+    def __init__(self, dec, llr, dtype):
+        from ldpc_tpu_torch.decode import engine, qc_engine, qc_rowcol
+        self.dec, self.rc = dec, qc_rowcol
+        qc = dec.qc
+        self.llr_T = qc_engine._storage(llr, qc, dtype)
+        self.tabs = engine._tables(dec.weights, dec.spec, dec.max_iterations,
+                                   qc.num_blocks, llr.device)
+        self.v2c = self.llr_T.index_select(
+            0, qc_engine._graph_tables(qc, llr.device)["block_col"])
+        self.c2v = torch.empty_like(self.v2c)
+        for i in range(qc.mb):
+            qc_rowcol._cn_row_plain(self.v2c, self.c2v, self.tabs, qc,
+                                    dec.spec, i, 0)
+
+    def cn(self, row, t, plain, out=None):
+        """K5 (or its plain version) on ``row`` into ``out`` (new zeros by
+        default)."""
+        f = self.rc._cn_row_plain if plain else self.rc.cn_row
+        out = torch.zeros_like(self.v2c) if out is None else out
+        f(self.v2c, out, self.tabs, self.dec.qc, self.dec.spec, row, t)
+        return out
+
+    def vn(self, col, t, plain, out=None):
+        """K6 (or its plain version) on ``col`` into ``out`` = (v2c, post)
+        (new zeros by default)."""
+        f = self.rc._vn_col_plain if plain else self.rc.vn_col
+        v2c, post = ((torch.zeros_like(self.v2c), torch.zeros_like(self.llr_T))
+                     if out is None else out)
+        f(self.c2v, self.llr_T, v2c, post, self.tabs, self.dec.qc,
+          self.dec.spec, col, t)
+        return v2c, post
+
+
+def close(name, got, want, dtype):
+    """One launch's outputs against the plain version's: f32 to rtol 1e-6 /
+    atol 1e-5 with equal signs, bf16 >= 99.99% of values equal. Returns
+    the max abs diff."""
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        if not torch.equal(got < 0, want < 0):
+            raise AssertionError(f"{name}: f32 signs differ")
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+    else:
+        same = (got == want).float().mean().item()
+        if same < 0.9999:
+            raise AssertionError(f"{name}: bf16 values agree {same}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def rowcol_launches(name, dec, llr, dtype, rows, cols):
+    """K5 on ``rows`` and K6 on ``cols`` at the first and last iteration,
+    each against its plain version; returns the max abs diffs."""
+    st = RowColState(dec, llr, dtype)
+    qc, e5, e6 = dec.qc, 0.0, 0.0
+    for t in (0, dec.max_iterations - 1):
+        for i in rows:
+            blocks = list(qc.row_blocks[i])
+            e5 = max(e5, close(f"{name} K5 row {i}", st.cn(i, t, False)[blocks],
+                               st.cn(i, t, True)[blocks], dtype))
+        for j in cols:
+            blocks = list(qc.col_blocks[j])
+            (kv, kp), (pv, pp) = st.vn(j, t, False), st.vn(j, t, True)
+            e6 = max(e6, close(f"{name} K6 col {j}", kv[blocks], pv[blocks],
+                               dtype), close(f"{name} K6 post {j}", kp[j],
+                                             pp[j], dtype))
+    print(f"  {name:16s} {str(dtype)[6:]:8s} K5 rows {list(rows)}, K6 cols "
+          f"{list(cols)}, t=0 and {dec.max_iterations - 1}: max|d| "
+          f"{e5:g} / {e6:g}")
+    return e5, e6
+
+
+def phase7(code, qc, zdec, gen, dev, card):
+    """K5 and K6 against their plain versions on the card, and timed."""
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.decode import qc_rowcol
+
+    print("[7 K5/K6 vs plain]")
+    e5 = e6 = 0.0
+    llr = lt.awgn_llr(gen, torch.zeros((256, code.n), device=dev), 2.5)
+    for name, kw in SMALL_KINDS:
+        sdec = lt.make_decoder(code, max_iterations=5, qc=qc, **kw)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = rowcol_launches(name, sdec, llr, dtype, range(qc.mb),
+                                   range(qc.nb))
+            if dtype == torch.float32:
+                e5, e6 = max(e5, a), max(e6, b)
+    zllr = lt.awgn_llr(gen, torch.zeros((256, zdec.code.n), device=dev),
+                       RC_SNR)
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = rowcol_launches("zoo", zdec, zllr, dtype, [0], [0])
+        if dtype == torch.float32:
+            e5, e6 = max(e5, a), max(e6, b)
+    # the whole decode against its plain driver (the same plain K5/K6)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = dict(qc=zdec.qc, spec=zdec.spec, max_iterations=RC_T,
+                    check_every=1, dtype=dtype)
+        agree("zoo decode", lt.qc_pallas_decode_batch(
+            zllr, zdec.weights, **args), qc_rowcol._qc_pallas_plain(
+            zllr, zdec.weights, **args), dtype)
+
+    # one launch each at the main path's shapes: B=32768, bf16
+    st = RowColState(zdec, lt.awgn_llr(
+        gen, torch.zeros((RC_B, zdec.code.n), device=dev), RC_SNR),
+        torch.bfloat16)
+    bounds = rowcol_bounds(zdec, RC_B)
+    o5 = torch.empty_like(st.v2c)
+    o6 = (torch.empty_like(st.v2c), torch.empty_like(st.llr_T))
+    times = {}
+    for key, fn, bnd in (
+            ("qc_cn", lambda plain: st.cn(0, 0, plain, o5), bounds[0]),
+            ("qc_vn", lambda plain: st.vn(0, 0, plain, o6), bounds[1])):
+        k_ms, p_ms = time_ms(lambda: fn(False), 20), time_ms(lambda: fn(True), 2)
+        k2_ms, p2_ms = time_ms(lambda: fn(False), 20), time_ms(lambda: fn(True), 2)
+        times[key] = (k_ms, p_ms, bnd[0], bnd[1])
+        print(f"  time {key} B={RC_B} bf16 (one launch, zoo row/column 0): "
+              f"kernel {k_ms:.4f} / {k2_ms:.4f} ms, plain {p_ms:.2f} / "
+              f"{p2_ms:.2f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  [{card}]")
+    del st, o5, o6
+    torch.cuda.empty_cache()
+    return dict(qc_cn=times["qc_cn"] + (e5,), qc_vn=times["qc_vn"] + (e6,))
+
+
+def reset_counts():
+    from ldpc_tpu_torch.decode import fused, qc_rowcol
+    fused.LAYERED_LAUNCHES = fused.FLOODING_LAUNCHES = 0
+    qc_rowcol.CN_LAUNCHES = qc_rowcol.VN_LAUNCHES = 0
+
+
+def read_counts():
+    from ldpc_tpu_torch.decode import fused, qc_rowcol
+    return dict(K1=fused.LAYERED_LAUNCHES, K4=fused.FLOODING_LAUNCHES,
+                K5=qc_rowcol.CN_LAUNCHES, K6=qc_rowcol.VN_LAUNCHES)
+
+
+def phase8(zdec, dev, card):
+    """The zoo decoder at full width through K5/K6, and the same LLRs
+    through the engine route."""
+    import ldpc_tpu_torch as lt
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    llr = lt.awgn_llr(gen, torch.zeros((RC_B, zdec.code.n), device=dev),
+                      RC_SNR)
+    args = dict(qc=zdec.qc, spec=zdec.spec, max_iterations=RC_T,
+                check_every=1, dtype=torch.bfloat16, batch_tile=128)
+    lt.qc_pallas_decode_batch(llr[:128], zdec.weights, **args)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = lt.qc_pallas_decode_batch(llr, zdec.weights, **args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    fe = int(out.bits.any(dim=1).sum())
+    fer = fe / RC_B
+    print(f"[8 row/column path] {ZOO_ENTRY} B={RC_B} bf16 T={RC_T} "
+          f"check_every=1 at {RC_SNR} dB: {fe} frame errors, FER {fer:.6g}, "
+          f"avg iterations {out.iterations.float().mean().item():.4f}, "
+          f"launches {counts}")
+    print(f"  K5/K6 route: {1e3 * secs:.1f} ms, {RC_B / secs:.1f} "
+          f"codewords/s  [{card}]")
+    if counts != dict(K1=0, K4=0, K5=RC_T * zdec.qc.mb,
+                      K6=RC_T * zdec.qc.nb):
+        raise AssertionError(f"row/column path launches {counts}")
+    lo, hi = FER_BANDS[RC_SNR]
+    if not (lo < fer < hi and out.bits.shape == (RC_B, zdec.code.n)):
+        raise AssertionError(f"FER {fer} off the JAX package's curve "
+                             f"({lo}, {hi})")
+
+    edec = lt.load_pretrained(ZOO_ENTRY, qc_options=dict(
+        dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eout = edec(llr)
+    torch.cuda.synchronize()
+    esecs = time.perf_counter() - t0
+    if read_counts() != counts:
+        raise AssertionError("the engine route launched a kernel")
+    bits = (eout.bits == out.bits).float().mean().item()
+    frames = (eout.success == out.success).float().mean().item()
+    err_rc, err_en = out.bits.any(dim=1), eout.bits.any(dim=1)
+    only_rc = int((err_rc & ~err_en).sum())
+    only_en = int((err_en & ~err_rc).sum())
+    print(f"  engine route: {1e3 * esecs:.1f} ms, {RC_B / esecs:.1f} "
+          f"codewords/s  [{card}]; vs K5/K6: bits agree {bits:.6f}, success "
+          f"agrees {frames:.6f}, engine FER {int(err_en.sum()) / RC_B:.6g}; "
+          f"frame errors of one route only: K5/K6 {only_rc}, engine "
+          f"{only_en}")
+    if bits < RC_AGREE[0] or frames < RC_AGREE[1] or \
+            abs(only_rc - only_en) > 4 * (only_rc + only_en) ** 0.5 + 1:
+        raise AssertionError("the K5/K6 path and the engine route disagree")
+    del eout
+
+    # the first 64 frames against the plain path on the CPU
+    cpu = lt.qc_pallas_decode_batch(llr[:64].cpu(), zdec.weights,
+                                    **dict(args, batch_tile=64))
+    agree_cpu = (out.bits[:64].cpu() == cpu.bits).float().mean().item()
+    if agree_cpu < 0.9999 or not torch.equal(out.success[:64].cpu(),
+                                             cpu.success):
+        raise AssertionError(f"K5/K6 path vs plain on the CPU: bits "
+                             f"{agree_cpu}")
+    print(f"  first 64 frames vs the CPU plain path: bits agree "
+          f"{agree_cpu:.6f}, success equal")
+    return counts
+
+
+def phase9(dev, card):
+    """One compacting wave of the non-fused zoo decoder, stage 1 on K4."""
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.sim import point_generator
+
+    dec = lt.load_pretrained(ZOO_ENTRY, qc_options=dict(
+        dtype=torch.bfloat16, check_every=5))
+    cfg = lt.SimulationConfig(**NF_CONFIG)
+    sim = lt.LDPCSimulator(cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sim.simulate_decoder(dec, ZOO_ENTRY, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, kinds = read_counts(), sim.wave_kinds[ZOO_ENTRY]
+    # the wave's survivors after stage 1 (an extra K4 launch, not counted)
+    t1 = cfg.early_exit_iters
+    short = dataclasses.replace(dec.truncated(t1), qc_options=dict(
+        fused=True, dtype=torch.bfloat16))
+    llr = lt.awgn_llr(point_generator(cfg.seed, 0, dev),
+                      torch.zeros((cfg.wave_size, dec.code.n), device=dev),
+                      torch.tensor(6.5, device=dev))
+    surv = int((~short(llr).success).sum())
+    errors = res.total_errors[0]
+    print(f"[9 non-fused compaction] {ZOO_ENTRY} check_every=5, "
+          f"early_exit_iters={t1}, stage1_fused, budget "
+          f"{cfg.survivor_budget}: {res.total_frames[0]} frames at 6.5 dB, "
+          f"survivors {surv}, {errors} frame errors, FER "
+          f"{res.frame_error_rates[0]:.6g}, avg iterations "
+          f"{res.average_iterations[0]:.4f}, waves {kinds[0]}, launches "
+          f"{counts}, {res.total_frames[0] / secs:.1f} codewords/s  [{card}]")
+    if kinds != [{"compacted": 1}] or counts != dict(K1=0, K4=1, K5=0,
+                                                     K6=0):
+        raise AssertionError("the wave was not compacted with stage 1 on K4")
+    if not NF_ERRORS[0] <= errors <= NF_ERRORS[1]:
+        raise AssertionError(f"{errors} frame errors at 6.5 dB")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "run only on an NVIDIA GPU")
     import ldpc_tpu_torch as lt
-    from ldpc_tpu_torch.decode import _build, fused, two_checkpoint_stages
+    from ldpc_tpu_torch.decode import _build, two_checkpoint_stages
     from ldpc_tpu_torch.sim import point_generator
 
     dev = torch.device("cuda")
@@ -279,7 +610,7 @@ def main():
     torch.cuda.synchronize()
 
     n_warm, n_timed = 2, 6
-    fused.LAYERED_LAUNCHES = fused.FLOODING_LAUNCHES = 0
+    reset_counts()
     survivors, errors = [], []
 
     def wave(i):
@@ -296,10 +627,11 @@ def main():
         out = wave(n_warm + i)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = fused.LAYERED_LAUNCHES
+    counts = read_counts()
+    launches = counts["K1"]
     n_waves = n_warm + n_timed
-    if fused.FLOODING_LAUNCHES:
-        raise AssertionError("the layered bench path launched K4")
+    if counts["K4"] or counts["K5"] or counts["K6"]:
+        raise AssertionError(f"the layered bench path launched {counts}")
 
     surv = [int(n) for n in survivors]
     errs = [int(e) for e in errors]
@@ -394,10 +726,11 @@ def main():
           f"after t1 iterations {surv} (budget {SIM_BUDGET}); "
           f"early_exit_iters={SIM_T1}")
     sim = lt.LDPCSimulator(cfg)
-    fused.LAYERED_LAUNCHES = fused.FLOODING_LAUNCHES = 0
+    reset_counts()
     res = sim.simulate_decoder(zdec, ZOO_ENTRY, verbose=False)
     torch.cuda.synchronize()
-    k4_launches, k1_in_sim = fused.FLOODING_LAUNCHES, fused.LAYERED_LAUNCHES
+    counts = read_counts()
+    k4_launches, k1_in_sim = counts["K4"], counts["K1"]
     kinds = sim.wave_kinds[ZOO_ENTRY]
     for i, snr in enumerate(snrs):
         frames, errors = res.total_frames[i], res.total_errors[i]
@@ -410,7 +743,8 @@ def main():
     n_fall = sum(k.get("fallback", 0) for k in kinds)
     print(f"  K4 launches {k4_launches}, K1 launches {k1_in_sim}, "
           f"compacted waves {n_comp}, fallback waves {n_fall}")
-    if k1_in_sim or k4_launches != 2 * n_comp + 4 * n_fall:
+    if k1_in_sim or counts["K5"] or counts["K6"] or \
+            k4_launches != 2 * n_comp + 4 * n_fall:
         raise AssertionError("the simulator did not run through K4 alone")
     if not (n_comp and n_fall):
         raise AssertionError(f"both wave kinds must run: {kinds}")
@@ -443,6 +777,14 @@ def main():
     print(f"  first 64 frames of the first wave vs the CPU plain path: "
           f"survivors {int(g_n)}, bits agree {agree:.6f}, success equal")
 
+    del sub, g_out, c_out
+    torch.cuda.empty_cache()
+    rc = phase7(code, qc, dataclasses.replace(
+        zdec, qc_options=None), gen, dev, card)
+    rc_counts = phase8(zdec, dev, card)
+    torch.cuda.empty_cache()
+    phase9(dev, card)
+
     print(card)
     k4 = k4_times[SIM_WAVE]
     print(json.dumps({"kernels": [{
@@ -469,7 +811,19 @@ def main():
         "bound_ms": k4[2],
         "bound_by": k4[3],
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": key,
+        "route": "cuda",
+        "source": f"ldpc_tpu_torch/csrc/{key}.cu",
+        "replaces": f"ldpc_tpu/decode/pallas_qc.py:{line}",
+        "launches": rc_counts[kid],
+        "max_abs_err": rc[key][4],
+        "ms": rc[key][0],
+        "plain_ms": rc[key][1],
+        "bound_ms": rc[key][2],
+        "bound_by": rc[key][3],
+        "library_ms": None,
+    } for key, line, kid in (("qc_cn", 76, "K5"), ("qc_vn", 142, "K6"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

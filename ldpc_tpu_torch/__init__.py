@@ -4,10 +4,11 @@ It imports torch and numpy and never jax; module names follow the JAX
 package so each counterpart is easy to find. Ported so far: the code model,
 the RCQ quantizers, the decoder registry, the AWGN channel, the fused
 layered and flooding decodes (hand-written CUDA kernels, each with a plain
-PyTorch version for CPU tensors), the two-checkpoint early exit, the
-pretrained-decoder zoo and the Monte-Carlo simulator. Decoders and
-simulations run on the card unless given ``device="cpu"``. ROADMAP.md
-lists what is still to come.
+PyTorch version for CPU tensors), the QC engines as torch ops, the
+flooding QC decode through one kernel per base row and column, the
+two-checkpoint early exit, the pretrained-decoder zoo and the Monte-Carlo
+simulator. Decoders and simulations run on the card unless given
+``device="cpu"``. ROADMAP.md lists what is still to come.
 """
 
 from ldpc_tpu_torch.codes import (
@@ -53,8 +54,11 @@ from ldpc_tpu_torch.decode import (
     neural_min_sum,
     neural_offset_min_sum,
     param_count,
+    qc_decode_batch,
+    qc_decode_batch_layered,
     qc_fused_decode_batch,
     qc_fused_decode_batch_layered,
+    qc_pallas_decode_batch,
     rcq_min_sum,
     weighted_oms_rcq,
     weighted_rcq,

@@ -12,7 +12,13 @@ from ldpc_tpu_torch.decode.variants import (
     weighted_oms_rcq,
     weighted_rcq,
 )
-from ldpc_tpu_torch.decode.qc_engine import QCGraph, build_qc_graph
+from ldpc_tpu_torch.decode.qc_engine import (
+    QCGraph,
+    build_qc_graph,
+    qc_decode_batch,
+    qc_decode_batch_layered,
+)
+from ldpc_tpu_torch.decode.qc_rowcol import qc_pallas_decode_batch
 from ldpc_tpu_torch.decode.fused import (
     qc_fused_decode_batch,
     qc_fused_decode_batch_layered,

@@ -41,6 +41,10 @@ _ARGTYPES = {
     # csrc/fused_flooding.cu
     "ldpc_fused_flooding":
         [_P] * 7 + [_I, _P, _P, _I, _P] + [_P] * 5 + [_I] * 14 + [_P],
+    # csrc/qc_cn.cu
+    "ldpc_qc_cn": [_P] * 5 + [_I, _P, _P] + [_I] * 11 + [_P],
+    # csrc/qc_vn.cu
+    "ldpc_qc_vn": [_P] * 6 + [_I, _P, _P] + [_I] * 11 + [_P],
 }
 
 

@@ -27,7 +27,8 @@ import torch
 
 from ldpc_tpu_torch.decode.engine import DecodeResult
 
-__all__ = ["make_two_checkpoint_decoder", "two_checkpoint_stages"]
+__all__ = ["make_two_checkpoint_decoder", "two_checkpoint_stages",
+           "gather_survivors"]
 
 
 def two_checkpoint_stages(decoder, t1: int):
@@ -56,6 +57,28 @@ def two_checkpoint_stages(decoder, t1: int):
     return stage1, full
 
 
+def gather_survivors(llr: torch.Tensor, success: torch.Tensor, S: int):
+    """The first ``S`` frames of ``llr`` [B, n] whose ``success`` is False,
+    in frame order, as a fixed [S, n] batch (zero rows after the last).
+    Returns ``(rows, slot_frame, valid, in_budget, n_survivors)``: the
+    frame of each slot (0 past the last survivor), which slots hold one,
+    which frames got a slot, and the survivor count (0-d int32)."""
+    B, dev = llr.shape[0], llr.device
+    unconv = ~success
+    n_surv = unconv.sum(dtype=torch.int32)
+    rank = torch.cumsum(unconv.to(torch.int64), 0) - 1
+    inbud = unconv & (rank < S)
+    # frames outside the budget all land on the spare slot S
+    slots = torch.zeros(S + 1, dtype=torch.int64, device=dev)
+    slots.scatter_(0, torch.where(inbud, rank, S),
+                   torch.arange(B, dtype=torch.int64, device=dev))
+    slot_frame = slots[:S]
+    valid = torch.arange(S, device=dev) < torch.clamp_max(n_surv, S)
+    rows = torch.where(valid[:, None], llr[slot_frame],
+                       torch.zeros((), dtype=llr.dtype, device=dev))
+    return rows, slot_frame, valid, inbud, n_surv
+
+
 def make_two_checkpoint_decoder(decoder, *, t1: int, survivor_budget: int):
     """Build ``fn(llr, weights=None) -> (DecodeResult, n_survivors)`` with
     the {t1, T} checkpoint schedule for a fused-kernel QC decoder
@@ -79,26 +102,11 @@ def make_two_checkpoint_decoder(decoder, *, t1: int, survivor_budget: int):
 
     def fn(llr: torch.Tensor, weights=None):
         w = decoder.weights if weights is None else weights
-        B = llr.shape[0]
-        dev = llr.device
         out1 = stage1(llr, w)
-        conv = out1.success
-        unconv = ~conv
-        n_surv = unconv.sum(dtype=torch.int32)
-        rank = torch.cumsum(unconv.to(torch.int64), 0) - 1
-        inbud = unconv & (rank < S)
-
-        # frame of each survivor slot (slots past the last survivor: 0);
-        # frames outside the budget all land on the spare slot S
-        slots = torch.zeros(S + 1, dtype=torch.int64, device=dev)
-        slots.scatter_(0, torch.where(inbud, rank, S),
-                       torch.arange(B, dtype=torch.int64, device=dev))
-        slot_frame = slots[:S]
-        ar = torch.arange(S, device=dev)
-        valid = ar < torch.clamp_max(n_surv, S)
-        llr2 = torch.where(valid[:, None], llr[slot_frame],
-                           torch.zeros((), dtype=llr.dtype, device=dev))
+        llr2, slot_frame, valid, inbud, n_surv = gather_survivors(
+            llr, out1.success, S)
         out2 = full(llr2, w)
+        ar = torch.arange(S, device=llr.device)
 
         any_valid = valid[0]
         tgt = torch.where(valid, slot_frame, slot_frame[0])

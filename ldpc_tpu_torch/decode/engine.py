@@ -3,13 +3,18 @@
 Counterpart of ``ldpc_tpu/decode/engine.py``: :class:`VariantSpec` (numpy
 fields, the same validation), :class:`DecodeResult` (a NamedTuple of
 tensors), the static quantize-dequantize routing of ``_make_qdq`` and the
-numpy ``make_layers``. The general and layered torch engines (``decode_batch``,
-``decode_batch_layered``) are not ported yet.
+numpy ``make_layers``. Also the pieces every QC decode shares: the
+per-iteration tables (``_scan_xs`` with the per-block beta/alpha of
+``qc_engine._per_block_weights``, built on the device once per spec), the
+check-node min tree and variant transform, and the syndrome. The general
+and layered torch engines (``decode_batch``, ``decode_batch_layered``) are
+not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -20,6 +25,11 @@ from ldpc_tpu_torch.quantizer import power_qdq, staircase_qdq, uniform_qdq
 
 __all__ = ["VariantSpec", "DecodeResult", "qdq_mode", "make_qdq",
            "make_layers"]
+
+# device copies of a spec's tables, per (T, device); an entry goes when its
+# spec does
+_SPEC_TABLES: "weakref.WeakKeyDictionary[VariantSpec, dict]" = \
+    weakref.WeakKeyDictionary()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -141,3 +151,111 @@ def make_layers(graph: DecoderGraph, num_layers: Optional[int] = None):
     for li, l in enumerate(layers):
         out[li, : len(l)] = l
     return out
+
+
+def _spec_tables(spec: VariantSpec, T: int, NB: int, device) -> dict:
+    per = _SPEC_TABLES.setdefault(spec, {})
+    key = (T, torch.device(device))
+    if key not in per:
+        def tab(a, w):
+            if a is None:
+                return torch.zeros((T, w), dtype=torch.float32, device=device)
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        def idx(a):
+            return (None if a is None else
+                    torch.as_tensor(np.asarray(a, np.int64), device=device))
+
+        per[key] = dict(
+            thr=tab(spec.thresholds, 1), qp=tab(spec.qparams, 2),
+            vthr=tab(spec.v2c_thresholds, 1), vqp=tab(spec.v2c_qparams, 2),
+            beta_idx=idx(spec.beta_idx), alpha_idx=idx(spec.alpha_idx),
+            beta_fixed=torch.full((T, NB), spec.fixed_beta,
+                                  dtype=torch.float32, device=device),
+            alpha_fixed=torch.full((T, NB), spec.fixed_alpha,
+                                   dtype=torch.float32, device=device))
+    return per[key]
+
+
+def _tables(weights, spec: VariantSpec, T: int, NB: int, device) -> dict:
+    """Per-(iteration, block) float32 weight tables ``beta``/``alpha``
+    [T, NB] and the quantizer tables ``thr``/``vthr`` [T, L] and
+    ``qp``/``vqp`` [T, 2], on ``device``: ``ldpc_tpu``'s ``_scan_xs`` with
+    ``_per_block_weights`` applied (a fixed weight fills its table).
+    Weights on another device are moved there."""
+    c = _spec_tables(spec, T, NB, device)
+
+    def wtab(key):
+        idx = c[f"{key}_idx"]
+        if idx is None:
+            return c[f"{key}_fixed"]
+        w = torch.as_tensor(weights[key], dtype=torch.float32, device=device)
+        return w[:, idx].contiguous()
+
+    return dict(beta=wtab("beta"), alpha=wtab("alpha"),
+                **{k: c[k] for k in ("thr", "qp", "vthr", "vqp")})
+
+
+def _qdq_at(spec, tabs, t, v2c, closed):
+    x = {k: tabs[k][t] for k in ("thr", "qp", "vthr", "vqp")}
+    return make_qdq(spec, x, v2c=v2c, closed=closed)
+
+
+def _min_tree(xs):
+    """Running (min1, min2, first argmin, negative count) over the f32
+    messages ``xs`` of one row, with strict ``<`` as the kernels."""
+    inf = float("inf")
+    for k, xk in enumerate(xs):
+        negk = (xk < 0).to(torch.int32)
+        mk = xk.abs()
+        if k == 0:
+            min1, min2 = mk, torch.full_like(mk, inf)
+            argm = torch.zeros(mk.shape, dtype=torch.int32, device=mk.device)
+            neg_cnt = negk
+        else:
+            new_min = mk < min1
+            min2 = torch.where(new_min, min1, torch.minimum(min2, mk))
+            min1 = torch.where(new_min, mk, min1)
+            argm = torch.where(new_min, k, argm)
+            neg_cnt = neg_cnt + negk
+    if len(xs) == 1:
+        min2 = min1  # degree-1 checks
+    return min1, min2, argm, neg_cnt
+
+
+def _leave_one_out(min1, min2, argm, neg_cnt, k, xk):
+    """The leave-one-out (sign, magnitude) of message ``k`` of a row."""
+    loo_mag = torch.where(argm == k, min2, min1)
+    loo_neg = (neg_cnt - (xk < 0).to(torch.int32)) & 1
+    return 1.0 - 2.0 * loo_neg.to(torch.float32), loo_mag
+
+
+def _transform(spec, qdq, bb, ab, loo_sign, loo_mag):
+    """The variant's c2v from the leave-one-out sign and magnitude."""
+    if spec.kind == "nms":
+        return bb * loo_sign * loo_mag
+    if spec.kind == "rcq":
+        return qdq(loo_sign * loo_mag)
+    if spec.kind == "wrcq":
+        return qdq(bb * loo_sign * loo_mag)
+    off = torch.clamp_min(loo_mag - bb, 0.0)  # oms, orcq
+    if spec.alpha_in_cn:
+        off = off - ab
+    out = loo_sign * off
+    return qdq(out) if spec.kind == "orcq" else out
+
+
+def _syndrome_ok(post, qc, lift_dim: int = -1):
+    """Per-frame success from the stored posterior ``post`` [nb, ...]: per
+    base row, the parity of the check-aligned negative signs. Each column
+    tile ``post[j]`` holds the lift along ``lift_dim`` (-1 for [nb, B, L],
+    0 for [nb, L, B])."""
+    neg = post < 0
+    fail = torch.zeros(post.shape[1:], dtype=torch.bool, device=post.device)
+    for blocks in qc.row_blocks:
+        par = torch.zeros_like(fail)
+        for b in blocks:
+            par ^= torch.roll(neg[int(qc.block_col[b])],
+                              -int(qc.block_shift[b]), dims=lift_dim)
+        fail |= par
+    return ~fail.any(dim=lift_dim)

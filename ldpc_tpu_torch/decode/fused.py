@@ -34,14 +34,15 @@ on the device. A steady-state call copies nothing from the host.
 from __future__ import annotations
 
 import ctypes
-import weakref
 
-import numpy as np
 import torch
 
 from ldpc_tpu_torch.decode.engine import (DecodeResult, VariantSpec,
-                                          make_qdq, qdq_mode)
-from ldpc_tpu_torch.decode.qc_engine import QCGraph
+                                          _leave_one_out, _min_tree, _qdq_at,
+                                          _syndrome_ok, _tables, _transform,
+                                          qdq_mode)
+from ldpc_tpu_torch.decode.qc_engine import (QCGraph, _check_llr,
+                                             _graph_tables)
 
 __all__ = ["qc_fused_decode_batch", "qc_fused_decode_batch_layered",
            "LAYERED_LAUNCHES", "FLOODING_LAUNCHES"]
@@ -53,128 +54,6 @@ FLOODING_LAUNCHES = 0  # K4, csrc/fused_flooding.cu
 _TPU_KEYS = frozenset({"batch_tile", "natural", "interpret"})
 _KINDS = {"nms": 0, "oms": 1, "rcq": 2, "wrcq": 3, "orcq": 4}
 _QMODES = {"staircase": 0, "uniform": 1, "power": 2}
-
-# device copies of a spec's tables, per (T, device), and of a graph's
-# index tables, per device; an entry goes when its spec or graph does
-_SPEC_TABLES: "weakref.WeakKeyDictionary[VariantSpec, dict]" = \
-    weakref.WeakKeyDictionary()
-_GRAPH_TABLES: "weakref.WeakKeyDictionary[QCGraph, dict]" = \
-    weakref.WeakKeyDictionary()
-
-
-def _spec_tables(spec: VariantSpec, T: int, NB: int, device) -> dict:
-    per = _SPEC_TABLES.setdefault(spec, {})
-    key = (T, torch.device(device))
-    if key not in per:
-        def tab(a, w):
-            if a is None:
-                return torch.zeros((T, w), dtype=torch.float32, device=device)
-            return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-        def idx(a):
-            return (None if a is None else
-                    torch.as_tensor(np.asarray(a, np.int64), device=device))
-
-        per[key] = dict(
-            thr=tab(spec.thresholds, 1), qp=tab(spec.qparams, 2),
-            vthr=tab(spec.v2c_thresholds, 1), vqp=tab(spec.v2c_qparams, 2),
-            beta_idx=idx(spec.beta_idx), alpha_idx=idx(spec.alpha_idx),
-            beta_fixed=torch.full((T, NB), spec.fixed_beta,
-                                  dtype=torch.float32, device=device),
-            alpha_fixed=torch.full((T, NB), spec.fixed_alpha,
-                                   dtype=torch.float32, device=device))
-    return per[key]
-
-
-def _tables(weights, spec: VariantSpec, T: int, NB: int, device) -> dict:
-    """Per-(iteration, block) float32 weight tables and the quantizer
-    tables, on ``device``. Weights on another device are moved there."""
-    c = _spec_tables(spec, T, NB, device)
-
-    def wtab(key):
-        idx = c[f"{key}_idx"]
-        if idx is None:
-            return c[f"{key}_fixed"]
-        w = torch.as_tensor(weights[key], dtype=torch.float32, device=device)
-        return w[:, idx].contiguous()
-
-    return dict(beta=wtab("beta"), alpha=wtab("alpha"),
-                **{k: c[k] for k in ("thr", "qp", "vthr", "vqp")})
-
-
-def _graph_tables(qc: QCGraph, device) -> dict:
-    """int32 index tables of the kernels: row_ptr [mb+1], col_ptr [nb+1],
-    col_blocks [NB] (block ids column by column), block_col, block_shift."""
-    per = _GRAPH_TABLES.setdefault(qc, {})
-    device = torch.device(device)
-    if device not in per:
-        if [b for r in qc.row_blocks for b in r] != list(range(qc.num_blocks)):
-            raise ValueError("QCGraph blocks must be ordered row-major")
-        ints = lambda a: torch.as_tensor(np.asarray(a, np.int32),
-                                         device=device)
-        per[device] = dict(
-            row_ptr=ints(np.cumsum([0] + [len(r) for r in qc.row_blocks])),
-            col_ptr=ints(np.cumsum([0] + [len(c) for c in qc.col_blocks])),
-            col_blocks=ints([b for c in qc.col_blocks for b in c]),
-            block_col=ints(qc.block_col), block_shift=ints(qc.block_shift))
-    return per[device]
-
-
-def _qdq_at(spec, tabs, t, v2c, closed):
-    x = {k: tabs[k][t] for k in ("thr", "qp", "vthr", "vqp")}
-    return make_qdq(spec, x, v2c=v2c, closed=closed)
-
-
-def _transform(spec, qdq, bb, ab, loo_sign, loo_mag):
-    """The variant's c2v from the leave-one-out sign and magnitude."""
-    if spec.kind == "nms":
-        return bb * loo_sign * loo_mag
-    if spec.kind == "rcq":
-        return qdq(loo_sign * loo_mag)
-    if spec.kind == "wrcq":
-        return qdq(bb * loo_sign * loo_mag)
-    off = torch.clamp_min(loo_mag - bb, 0.0)  # oms, orcq
-    if spec.alpha_in_cn:
-        off = off - ab
-    out = loo_sign * off
-    return qdq(out) if spec.kind == "orcq" else out
-
-
-def _syndrome_ok(post, qc: QCGraph):
-    """Per-frame success from the stored posterior ``post`` [nb, B, L]:
-    per base row, the parity of the check-aligned negative signs."""
-    neg = post < 0
-    B, L = post.shape[1], post.shape[2]
-    fail = torch.zeros((B, L), dtype=torch.bool, device=post.device)
-    for blocks in qc.row_blocks:
-        par = torch.zeros((B, L), dtype=torch.bool, device=post.device)
-        for b in blocks:
-            par = par ^ torch.roll(neg[int(qc.block_col[b])],
-                                   -int(qc.block_shift[b]), dims=-1)
-        fail = fail | par
-    return ~fail.any(dim=-1)
-
-
-def _min_tree(xs):
-    """Running (min1, min2, first argmin, negative count) over the f32
-    messages ``xs`` of one row, with strict ``<`` as the kernels."""
-    inf = float("inf")
-    for k, xk in enumerate(xs):
-        negk = (xk < 0).to(torch.int32)
-        mk = xk.abs()
-        if k == 0:
-            min1, min2 = mk, torch.full_like(mk, inf)
-            argm = torch.zeros(mk.shape, dtype=torch.int32, device=mk.device)
-            neg_cnt = negk
-        else:
-            new_min = mk < min1
-            min2 = torch.where(new_min, min1, torch.minimum(min2, mk))
-            min1 = torch.where(new_min, mk, min1)
-            argm = torch.where(new_min, k, argm)
-            neg_cnt = neg_cnt + negk
-    if len(xs) == 1:
-        min2 = min1  # degree-1 checks
-    return min1, min2, argm, neg_cnt
 
 
 def _plain_flooding(llr, tabs, qc: QCGraph, spec: VariantSpec, T: int,
@@ -203,9 +82,8 @@ def _plain_flooding(llr, tabs, qc: QCGraph, spec: VariantSpec, T: int,
             xs = [M[b].to(f32) for b in blocks]
             min1, min2, argm, neg_cnt = _min_tree(xs)
             for k, b in enumerate(blocks):
-                loo_mag = torch.where(argm == k, min2, min1)
-                loo_neg = (neg_cnt - (xs[k] < 0).to(torch.int32)) & 1
-                loo_sign = 1.0 - 2.0 * loo_neg.to(f32)
+                loo_sign, loo_mag = _leave_one_out(min1, min2, argm, neg_cnt,
+                                                   k, xs[k])
                 M[b] = _transform(spec, qdq, beta[t, b], alpha[t, b],
                                   loo_sign, loo_mag).to(dtype)
         for j, blocks in enumerate(qc.col_blocks):
@@ -355,12 +233,7 @@ class _Call:
         unknown = set(tpu_keys) - _TPU_KEYS
         if unknown:
             raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
-        if dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError(f"dtype must be torch.bfloat16 or torch.float32, "
-                             f"got {dtype}")
-        if llr.shape[1] != qc.n:
-            raise ValueError(f"llr has {llr.shape[1]} columns, the code has "
-                             f"n={qc.n}")
+        _check_llr(llr, qc, dtype)
         self.closed = closed_qdq or spec.closed_qdq
         self.T = max_iterations
         self.tabs = _tables(weights, spec, self.T, qc.num_blocks, llr.device)

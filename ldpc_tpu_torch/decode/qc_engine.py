@@ -1,20 +1,44 @@
-"""QC protograph structure (a numpy copy of ``ldpc_tpu/decode/qc_engine.py``'s
-``QCGraph`` and ``build_qc_graph``).
+"""QC-structured decode engines: circulant rolls instead of gathers
+(counterpart of ``ldpc_tpu/decode/qc_engine.py``).
 
-Check ``r`` of base row ``row(b)`` connects to variable
-``col(b)*lift + (r + shift(b)) % lift`` along block ``b``. The torch QC
-engines (``qc_decode_batch``, ``qc_decode_batch_layered``: the training
-path) are not ported yet.
+``QCGraph`` and ``build_qc_graph`` are numpy copies. Check ``r`` of base
+row ``row(b)`` connects to variable ``col(b)*lift + (r + shift(b)) % lift``
+along block ``b``.
+
+:func:`qc_decode_batch` (flooding) and :func:`qc_decode_batch_layered` are
+the JAX package's XLA engines as plain PyTorch ops on whatever device the
+LLRs are on, forward only (the ``ste``/``return_trajectory`` training
+calls wait for ``train/``). The layout is JAX's: channel LLRs
+``llr_T[nb, lift, B]`` and the variable-aligned message state
+``[NB, lift, B]``, batch innermost; ``roll(x, -shift(b))`` along the lift
+aligns block ``b``'s variables to its checks. Each function rounds where
+its JAX counterpart does under JAX's type promotion: a storage-type
+(``dtype``) operation is a float32 operation rounded to ``dtype``, a
+float32 weight or quantizer promotes to float32, and every check-node
+result is cast to ``dtype`` once. With bf16 storage that matches
+``ldpc_tpu`` compiled with ``xla_allow_excess_precision=False``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["QCGraph", "build_qc_graph"]
+from ldpc_tpu_torch.decode.engine import (DecodeResult, VariantSpec,
+                                          _leave_one_out, _min_tree, _qdq_at,
+                                          _syndrome_ok, _tables, _transform)
+
+__all__ = ["QCGraph", "build_qc_graph", "qc_decode_batch",
+           "qc_decode_batch_layered"]
+
+# device copies of a graph's index tables, per device; an entry goes when
+# its graph does
+_GRAPH_TABLES: "weakref.WeakKeyDictionary[QCGraph, dict]" = \
+    weakref.WeakKeyDictionary()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -85,3 +109,191 @@ def build_qc_graph(base_matrix: np.ndarray, lift: int) -> QCGraph:
         block_dcdv_bucket=(bdc * len(unique_dv) + bdv).astype(np.int32),
         unique_dc=unique_dc, unique_dv=unique_dv,
     )
+
+
+def _graph_tables(qc: QCGraph, device) -> dict:
+    """int32 index tables of the kernels: row_ptr [mb+1], col_ptr [nb+1],
+    col_blocks [NB] (block ids column by column), block_col, block_shift."""
+    per = _GRAPH_TABLES.setdefault(qc, {})
+    device = torch.device(device)
+    if device not in per:
+        if [b for r in qc.row_blocks for b in r] != list(range(qc.num_blocks)):
+            raise ValueError("QCGraph blocks must be ordered row-major")
+        ints = lambda a: torch.as_tensor(np.asarray(a, np.int32),
+                                         device=device)
+        per[device] = dict(
+            row_ptr=ints(np.cumsum([0] + [len(r) for r in qc.row_blocks])),
+            col_ptr=ints(np.cumsum([0] + [len(c) for c in qc.col_blocks])),
+            col_blocks=ints([b for c in qc.col_blocks for b in c]),
+            block_col=ints(qc.block_col), block_shift=ints(qc.block_shift))
+    return per[device]
+
+
+def _check_llr(llr, qc: QCGraph, dtype):
+    """Refuse a storage type other than bf16 or f32 (fp16 cannot hold the
+    quantizer's 1e-30 sign floor) and LLRs of another code length."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dtype must be torch.bfloat16 or torch.float32, "
+                         f"got {dtype}")
+    if llr.shape[1] != qc.n:
+        raise ValueError(f"llr has {llr.shape[1]} columns, the code has "
+                         f"n={qc.n}")
+
+
+def _storage(llr, qc: QCGraph, dtype):
+    """``llr`` [B, n] as the per-column storage-type tiles [nb, L, B]."""
+    _check_llr(llr, qc, dtype)
+    return llr.to(dtype).T.contiguous().view(qc.nb, qc.lift, llr.shape[0])
+
+
+class _Freeze:
+    """Convergence freezing (``ldpc_tpu``'s scan carry): after each syndrome
+    check, frames not yet done take this check's posterior and iteration
+    count; a frame whose syndrome passes is done from then on."""
+
+    def __init__(self, post0):
+        B = post0.shape[-1]
+        self.post = post0
+        self.done = torch.zeros(B, dtype=torch.bool, device=post0.device)
+        self.iters = torch.zeros(B, dtype=torch.int32, device=post0.device)
+
+    def check(self, post, qc: QCGraph, t_last: int):
+        ok = _syndrome_ok(post, qc, lift_dim=0)
+        self.post = torch.where(self.done, self.post, post)
+        self.iters = self.iters.masked_fill(~self.done, t_last + 1)
+        self.done = self.done | ok
+
+    def result(self, qc: QCGraph) -> DecodeResult:
+        post = self.post.reshape(qc.n, self.post.shape[-1]).T.contiguous()
+        return DecodeResult(bits=(post < 0).to(torch.int32), posterior=post,
+                            iterations=self.iters, success=self.done)
+
+
+def qc_decode_batch(
+    llr: torch.Tensor,           # [B, n]
+    weights,                     # {'beta': [T, n_beta] | None, 'alpha': ...}
+    *,
+    qc: QCGraph,
+    spec: VariantSpec,
+    max_iterations: int,
+    check_every: int = 1,
+    dtype: torch.dtype = torch.float32,
+    unroll: bool = False,
+) -> DecodeResult:
+    """Flooding decode over the QC structure, forward only.
+
+    ``check_every``: the syndrome is checked (and outputs frozen) after
+    every chunk of that many iterations; it must divide T. ``dtype``: the
+    message and posterior storage type, bf16 or f32. ``unroll`` (XLA
+    tuning) is accepted and ignored. Returns int32 bits, the posterior in
+    ``dtype``, per-frame iterations and success."""
+    T = max_iterations
+    if T % check_every:
+        raise ValueError(f"check_every={check_every} must divide T={T}")
+    llr_T = _storage(llr, qc, dtype)
+    dev = llr.device
+    tabs = _tables(weights, spec, T, qc.num_blocks, dev)
+    shifts = [int(s) for s in qc.block_shift]
+    f32 = torch.float32
+    v2c = llr_T.index_select(0, _graph_tables(qc, dev)["block_col"])
+
+    def iteration(v2c, t):
+        qdq = _qdq_at(spec, tabs, t, False, False)
+        vqdq = _qdq_at(spec, tabs, t, True, False)
+        beta, alpha = tabs["beta"][t], tabs["alpha"][t]
+        # check-node update, per base row, in float32
+        c2v = [None] * qc.num_blocks
+        for blocks in qc.row_blocks:
+            xs = [torch.roll(v2c[b], -shifts[b], dims=0).to(f32)
+                  for b in blocks]
+            tree = _min_tree(xs)
+            for k, b in enumerate(blocks):
+                loo_sign, loo_mag = _leave_one_out(*tree, k, xs[k])
+                out = _transform(spec, qdq, beta[b], alpha[b], loo_sign,
+                                 loo_mag)
+                c2v[b] = torch.roll(out.to(dtype), shifts[b], dims=0)
+        # variable-node update, per base column: sums in dtype
+        new = torch.empty_like(v2c)
+        posts = []
+        for j, blocks in enumerate(qc.col_blocks):
+            colsum = c2v[blocks[0]]
+            for b in blocks[1:]:
+                colsum = colsum + c2v[b]
+            posts.append(llr_T[j] + colsum)
+            for b in blocks:
+                ext = colsum - c2v[b]
+                if spec.alpha_in_cn:
+                    nv = llr_T[j] + ext
+                else:  # the float32 weight promotes the sum to float32
+                    nv = llr_T[j].to(f32) + alpha[b] * ext.to(f32)
+                new[b] = vqdq(nv) if vqdq is not None else nv
+        post = torch.stack(posts)
+        if vqdq is not None:
+            post = vqdq(post).to(dtype)
+        return new, post
+
+    freeze = _Freeze(llr_T)
+    for t in range(T):
+        v2c, post = iteration(v2c, t)
+        if (t + 1) % check_every == 0:
+            freeze.check(post, qc, t)
+    return freeze.result(qc)
+
+
+def qc_decode_batch_layered(
+    llr: torch.Tensor,           # [B, n]
+    weights,
+    *,
+    qc: QCGraph,
+    spec: VariantSpec,
+    max_iterations: int,
+    dtype: torch.dtype = torch.float32,
+) -> DecodeResult:
+    """Layered-schedule QC decode, forward only: base rows are the layers.
+
+    A persistent per-block c2v memory and per-column sums in ``dtype``;
+    row by row, fresh v2c messages are formed from the current sums, run
+    through the check-node update, and folded back as
+    ``colsum + (new - old)`` (the difference rounded first). The V2C
+    quantizer applies to the posterior at each iteration's end; the
+    syndrome is checked after every iteration."""
+    T = max_iterations
+    llr_T = _storage(llr, qc, dtype)
+    dev = llr.device
+    tabs = _tables(weights, spec, T, qc.num_blocks, dev)
+    shifts = [int(s) for s in qc.block_shift]
+    cols = [int(c) for c in qc.block_col]
+    f32 = torch.float32
+    c2v = torch.zeros((qc.num_blocks,) + llr_T.shape[1:], dtype=dtype,
+                      device=dev)
+    colsum = torch.zeros_like(llr_T)
+    freeze = _Freeze(llr_T)
+
+    for t in range(T):
+        qdq = _qdq_at(spec, tabs, t, False, False)
+        vqdq = _qdq_at(spec, tabs, t, True, False)
+        beta, alpha = tabs["beta"][t], tabs["alpha"][t]
+        for blocks in qc.row_blocks:
+            xs = []
+            for b in blocks:
+                j = cols[b]
+                ext = colsum[j] - c2v[b]
+                if spec.alpha_in_cn:
+                    nv = llr_T[j] + ext
+                else:
+                    nv = llr_T[j].to(f32) + alpha[b] * ext.to(f32)
+                xs.append(torch.roll(nv.to(f32), -shifts[b], dims=0))
+            tree = _min_tree(xs)
+            for k, b in enumerate(blocks):
+                loo_sign, loo_mag = _leave_one_out(*tree, k, xs[k])
+                out = _transform(spec, qdq, beta[b], alpha[b], loo_sign,
+                                 loo_mag)
+                new = torch.roll(out, shifts[b], dims=0).to(dtype)
+                j = cols[b]
+                colsum[j] = colsum[j] + (new - c2v[b])
+                c2v[b] = new
+        post = llr_T + colsum
+        if vqdq is not None:
+            post = vqdq(post).to(dtype)
+        freeze.check(post, qc, t)
+    return freeze.result(qc)

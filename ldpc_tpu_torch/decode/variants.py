@@ -24,11 +24,14 @@ A decoder lives on a device, the card (``"cuda"``) unless the caller asks
 for ``"cpu"``: its weights are kept there, and on a machine without a
 card ``make_decoder`` raises rather than fall back to the CPU.
 
-Of the call routes, only the fused inference paths are ported: a QC
-decoder with ``qc_options={"fused": True, ...}``, called without
-``ste``/``return_trajectory``, runs the fused layered or flooding decode
-(``decode/fused.py``). Every other route raises ``NotImplementedError``
-naming the ROADMAP.md Queue 1 item that will port it.
+Of the call routes, the QC inference paths are ported: a QC decoder with
+``qc_options={"fused": True, ...}`` runs the fused layered or flooding
+decode (``decode/fused.py``); without ``fused`` it runs the torch QC
+engine (``decode/qc_engine.py``), flooding with the ``check_every``,
+``dtype`` and ``unroll`` options, layered always in f32. The training
+calls (``ste``/``return_trajectory``) and the non-QC engines raise
+``NotImplementedError`` naming the ROADMAP.md Queue 1 item that will port
+them.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ import torch
 
 from ldpc_tpu_torch.codes import DecoderGraph, LDPCCode, build_graph
 from ldpc_tpu_torch.decode.engine import DecodeResult, VariantSpec, make_layers
-from ldpc_tpu_torch.decode.qc_engine import QCGraph
+from ldpc_tpu_torch.decode.qc_engine import (QCGraph, qc_decode_batch,
+                                             qc_decode_batch_layered)
 from ldpc_tpu_torch.quantizer import (
     stack_quantizer_params,
     stack_quantizer_thresholds,
@@ -137,9 +141,11 @@ class Decoder:
 
     ``weights`` is ``{"beta": [T, n_beta] | None, "alpha": [T, n_alpha] |
     None}`` of float32 tensors on ``device``. ``qc_options`` carries the
-    fused path's options (``fused``, ``dtype``, ``lean``, ``closed_qdq``,
-    ``check_every``; the TPU-only ``batch_tile``/``natural``/``interpret``
-    are accepted and ignored).
+    QC paths' options: ``fused`` picks the fused kernels (``dtype``,
+    ``lean``, ``closed_qdq``, ``check_every``; the TPU-only
+    ``batch_tile``/``natural``/``interpret`` are accepted and ignored),
+    else the flooding engine takes ``check_every``, ``dtype`` and
+    ``unroll`` and drops the fused-only keys.
     """
 
     name: str
@@ -164,28 +170,27 @@ class Decoder:
             llr = llr[None, :]
         opts = dict(self.qc_options or {})
         if ste or return_trajectory:
-            raise _not_ported("training calls (ste / return_trajectory)",
-                              "QC engines as torch ops")
+            raise _not_ported("training calls (ste / return_trajectory) "
+                              "and the STE quantizers", "train/")
+        fused = opts.pop("fused", False)
         if self.layered and self.qc is not None:
-            if not opts.pop("fused", False):
-                raise _not_ported("the layered QC engine "
-                                  "(qc_decode_batch_layered)",
-                                  "QC engines as torch ops")
-            from ldpc_tpu_torch.decode.fused import \
-                qc_fused_decode_batch_layered
-            opts.pop("check_every", None)
-            opts.pop("unroll", None)
-            out = qc_fused_decode_batch_layered(
-                llr, w, qc=self.qc, spec=self.spec,
-                max_iterations=self.max_iterations, **opts)
+            if fused:
+                from ldpc_tpu_torch.decode.fused import \
+                    qc_fused_decode_batch_layered
+                opts.pop("check_every", None)
+                opts.pop("unroll", None)
+                out = qc_fused_decode_batch_layered(
+                    llr, w, qc=self.qc, spec=self.spec,
+                    max_iterations=self.max_iterations, **opts)
+            else:  # the engine takes no options: f32 messages
+                out = qc_decode_batch_layered(
+                    llr, w, qc=self.qc, spec=self.spec,
+                    max_iterations=self.max_iterations)
         elif self.layered:
             raise _not_ported("the general layered engine "
                               "(decode_batch_layered)",
                               "general and bucketed engines")
-        elif self.qc is not None:
-            if not opts.pop("fused", False):
-                raise _not_ported("the flooding QC engine (qc_decode_batch)",
-                                  "QC engines as torch ops")
+        elif self.qc is not None and fused:
             from ldpc_tpu_torch.decode.fused import qc_fused_decode_batch
             # the kernel checks the syndrome once, at T
             ce = opts.pop("check_every", self.max_iterations)
@@ -196,6 +201,12 @@ class Decoder:
                     "incompatible")
             opts.pop("unroll", None)
             out = qc_fused_decode_batch(
+                llr, w, qc=self.qc, spec=self.spec,
+                max_iterations=self.max_iterations, **opts)
+        elif self.qc is not None:
+            for key in ("lean", "natural", "closed_qdq"):  # fused-only
+                opts.pop(key, None)
+            out = qc_decode_batch(
                 llr, w, qc=self.qc, spec=self.spec,
                 max_iterations=self.max_iterations, **opts)
         else:

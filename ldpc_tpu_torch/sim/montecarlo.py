@@ -9,14 +9,24 @@ stopping rule is the reference's (``max_frames`` or ``max_errors``) with
 ``min_frames`` enforced. Results are JSON key-compatible with the JAX
 package's (and so with the reference's ``save_results``).
 
-With ``early_exit_iters`` the wave is the compacting wave of a fused
-decoder: the {T1, T} two-checkpoint decode of
-``decode/early_exit.make_two_checkpoint_decoder`` (frames converged at T1
-keep that output, up to ``survivor_budget`` others are re-decoded at T).
-When more frames survive than the budget holds, the whole wave falls back
-to the same schedule without compaction: the SAME LLRs are decoded at T1
-and at T and each frame takes its T1 output if it converged there. Frames
-past the budget never reach the statistics, and no noise is drawn again.
+With ``early_exit_iters`` (T1) the wave is a compacting wave:
+
+- of a fused decoder, the {T1, T} two-checkpoint decode of
+  ``decode/early_exit.make_two_checkpoint_decoder`` (frames converged at
+  T1 keep that output, up to ``survivor_budget`` others are re-decoded at
+  T). When more frames survive than the budget holds, the whole wave falls
+  back to the same schedule without compaction: the SAME LLRs are decoded
+  at T1 and at T and each frame takes its T1 output if it converged there.
+- of a non-fused (engine) decoder, the decoder truncated to T1 iterations
+  on its own ``check_every`` schedule (T1 rounded up to a check boundary),
+  or with ``stage1_fused`` the fused flooding kernel with its single check
+  at T1 (``check_every`` must equal T1); up to ``survivor_budget``
+  unconverged frames are re-decoded from scratch by the decoder itself.
+  Converged frames are frozen at their first check, so the pooled counts
+  equal the plain wave's; on overflow the wave is the plain wave.
+
+Frames past the budget never reach the statistics, and no noise is drawn
+again.
 
 Randomness: one ``torch.Generator`` on the simulation's device per (seed,
 SNR index), so a resumed sweep gives the same statistics as an
@@ -24,9 +34,8 @@ uninterrupted one. Its numbers differ from the JAX package's threefry
 keys for the same seed: agreement with it is statistical.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md Queue 1 item: compaction or ``stage1_fused`` with a non-fused
-parent (QC engines as torch ops), ``mesh`` (parallel/) and the ``plot_*``
-methods (report/, in the leaf modules).
+ROADMAP.md Queue 1 item: ``mesh`` (parallel/) and the ``plot_*`` methods
+(report/, in the leaf modules).
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ import numpy as np
 import torch
 
 from ldpc_tpu_torch.channel import awgn_llr, puncture_llr
-from ldpc_tpu_torch.decode.early_exit import (make_two_checkpoint_decoder,
+from ldpc_tpu_torch.decode.early_exit import (gather_survivors,
+                                              make_two_checkpoint_decoder,
                                               two_checkpoint_stages)
 from ldpc_tpu_torch.decode.variants import (Decoder, _not_ported,
                                             resolve_device)
@@ -151,12 +161,16 @@ def point_generator(seed: int, snr_idx: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-def _counts(bits, iterations, success) -> torch.Tensor:
+def _counts(bits, iterations, success, keep=None) -> torch.Tensor:
     """(frame errors, bit errors, iteration sum, successes) as an int64
-    device tensor; bit sums accumulate in int64 whatever the bits' type."""
+    device tensor, over the frames ``keep`` selects (default all); bit
+    sums accumulate in int64 whatever the bits' type."""
     wrong = bits.sum(dim=-1, dtype=torch.int64)
-    return torch.stack([(wrong > 0).sum(), wrong.sum(),
-                        iterations.sum(dtype=torch.int64),
+    iterations = iterations.to(torch.int64)
+    if keep is not None:
+        wrong, iterations = wrong * keep, iterations * keep
+        success = success & keep
+    return torch.stack([(wrong > 0).sum(), wrong.sum(), iterations.sum(),
                         success.sum(dtype=torch.int64)])
 
 
@@ -216,6 +230,50 @@ class _CompactingWave(_Wave):
         return _counts(bits, iters, conv | o2.success).tolist()
 
 
+class _EngineCompactingWave(_Wave):
+    """The compacting wave of a non-fused decoder: a truncated (or, with
+    ``stage1_fused``, fused) stage 1, the decoder itself on the survivors,
+    and the plain wave when more survive than the budget holds."""
+
+    def __init__(self, decoder: Decoder, wave_size: int, device, t1: int,
+                 survivor_budget: int, stage1_fused: bool, punctured=None):
+        super().__init__(decoder, wave_size, device, punctured)
+        self.budget, self.t1 = survivor_budget, t1
+        short = decoder.truncated(t1)
+        if stage1_fused:
+            if decoder.qc is None:
+                raise ValueError("stage1_fused needs a QC decoder")
+            ce = (decoder.qc_options or {}).get("check_every")
+            if ce != t1:
+                raise ValueError(
+                    f"stage1_fused requires check_every == early_exit_iters "
+                    f"(got {ce} vs {t1}): the fused kernel checks once at "
+                    "T1, which must be the truncated decoder's schedule")
+            opts = dict(short.qc_options, fused=True)
+            opts.pop("check_every")
+            opts.pop("unroll", None)
+            short = dataclasses.replace(short, qc_options=opts)
+        self.short = short
+
+    def counts(self, llr, weights=None) -> List[int]:
+        w = self.decoder.weights if weights is None else weights
+        out1 = self.short(llr, {k: (None if a is None else a[:self.t1])
+                                for k, a in w.items()})
+        conv = out1.success
+        llr2, _, valid, _, n_surv = gather_survivors(llr, conv, self.budget)
+        out2 = self.decoder(llr2, w)
+        # stage 1 counts the frames it settled, stage 2 its valid rows
+        c = (_counts(out1.bits, out1.iterations, out1.success, conv) +
+             _counts(out2.bits, out2.iterations, out2.success, valid))
+        vals = torch.cat([c, n_surv.view(1).to(torch.int64)]).tolist()
+        if vals[4] <= self.budget:
+            self.kinds["compacted"] += 1
+            return vals[:4]
+        self.kinds["fallback"] += 1  # survivor overflow: the plain wave
+        out = self.decoder(llr, weights)
+        return _counts(out.bits, out.iterations, out.success).tolist()
+
+
 def _build_wave(decoder: Decoder, config: SimulationConfig, mesh=None):
     if mesh is not None:
         raise _not_ported("mesh-sharded simulation", "parallel/")
@@ -224,11 +282,6 @@ def _build_wave(decoder: Decoder, config: SimulationConfig, mesh=None):
     if config.early_exit_iters is None:
         return _Wave(decoder, config.wave_size, device, punct)
     opts = decoder.qc_options or {}
-    if not opts.get("fused"):
-        what = ("stage1_fused with a non-fused parent decoder"
-                if config.stage1_fused else
-                "early-exit compaction of a non-fused decoder")
-        raise _not_ported(what, "QC engines as torch ops")
     budget = (config.survivor_budget if config.survivor_budget is not None
               else max(1, config.wave_size // 4))
     t1 = config.early_exit_iters
@@ -236,6 +289,9 @@ def _build_wave(decoder: Decoder, config: SimulationConfig, mesh=None):
     if ce and t1 % ce:
         # stage 1 is judged on the decoder's own check schedule: round up
         t1 = ((t1 + ce - 1) // ce) * ce
+    if not opts.get("fused"):
+        return _EngineCompactingWave(decoder, config.wave_size, device, t1,
+                                     budget, config.stage1_fused, punct)
     return _CompactingWave(decoder, config.wave_size, device, t1, budget,
                            punct)
 

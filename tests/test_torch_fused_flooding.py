@@ -21,19 +21,11 @@ import torch
 
 import ldpc_tpu_torch as lt
 from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch
-from ldpc_tpu_torch.decode import fused
-from torch_port_helpers import channel_llr, decoder_pair, make_base
+from ldpc_tpu_torch.decode import engine, qc_engine
+from torch_port_helpers import (SMALL_KINDS, channel_llr, decoder_pair,
+                                make_base)
 
 T = 5
-SMALL_KINDS = {
-    "ms": dict(kind="ms", factor=0.7),
-    "rcq_bc3_bv8": dict(kind="rcq", bc=3, bv=8),
-    "nms_t2": dict(kind="nms", sharing_type=2, init="nms", seed=1),
-    "oms_t2": dict(kind="oms", sharing_type=2, seed=5),
-    "wrcq_t2": dict(kind="wrcq", bc=3, sharing_type=2, init="nms", seed=6),
-    "orcq_t2": dict(kind="orcq", bc=3, sharing_type=2, seed=7),
-    "rcq_bc5_closed": dict(kind="rcq", bc=5, bv=8, closed_qdq=True),
-}
 
 
 def _pair(**kw):
@@ -142,14 +134,14 @@ def test_tables_built_once_and_bad_arguments_refused():
     reused; a new weight table is gathered afresh on every call."""
     _, tdec = _pair(**SMALL_KINDS["wrcq_t2"])
     llr = channel_llr(4, tdec.code.n, 2.5, seed=12)
-    a = fused._spec_tables(tdec.spec, T, tdec.qc.num_blocks, "cpu")
+    a = engine._spec_tables(tdec.spec, T, tdec.qc.num_blocks, "cpu")
     _port(tdec, llr)
-    assert fused._spec_tables(tdec.spec, T, tdec.qc.num_blocks,
-                              torch.device("cpu")) is a
-    assert fused._graph_tables(tdec.qc, "cpu") is fused._graph_tables(
-        tdec.qc, torch.device("cpu"))
+    assert engine._spec_tables(tdec.spec, T, tdec.qc.num_blocks,
+                               torch.device("cpu")) is a
+    assert qc_engine._graph_tables(tdec.qc, "cpu") is \
+        qc_engine._graph_tables(tdec.qc, torch.device("cpu"))
     w2 = {k: (None if w is None else w * 0.5) for k, w in tdec.weights.items()}
-    tabs = fused._tables(w2, tdec.spec, T, tdec.qc.num_blocks, "cpu")
+    tabs = engine._tables(w2, tdec.spec, T, tdec.qc.num_blocks, "cpu")
     idx = torch.as_tensor(tdec.spec.beta_idx, dtype=torch.int64)
     assert torch.equal(tabs["beta"], w2["beta"][:, idx])
     with pytest.raises(TypeError):

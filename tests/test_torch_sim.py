@@ -5,6 +5,10 @@
   syndrome", on the compacted and on the overflow path (as
   ``tests/test_sim.py`` holds the JAX wave), and on shared numpy LLRs its
   counts equal that program run by ``ldpc_tpu`` (f32, exact counts).
+- The compacting wave of a non-fused (engine) parent gives the plain
+  wave's counts exactly, compacted or on overflow, with stage 1 truncated
+  or on the fused kernel (``tests/test_sim.py``'s three compaction tests,
+  on a QC decoder).
 - The stopping rule, JSON interchange with ``ldpc_tpu``'s results, resume
   from a checkpoint, puncturing and the failing-decoder rule.
 """
@@ -199,3 +203,66 @@ def test_failing_decoder_dropped_and_test_decoders_built():
     for name, d in zoo.items():
         assert d.name == jzoo[name].name and d.device.type == "cpu"
         assert d.param_count() == jzoo[name].param_count()
+
+
+def _engine_decoder(**opts):
+    """A non-fused QC decoder (the torch flooding engine), f32."""
+    code = lt.create_qc_code(BASE, lift=16, max_iterations=T)
+    return lt.rcq_min_sum(code, bc=4, max_iterations=T,
+                          qc=lt.build_qc_graph(BASE, 16), device="cpu",
+                          qc_options=opts or None)
+
+
+def _plain_and_compacting(dec, **kw):
+    plain = _build_wave(dec, _config())
+    comp = _build_wave(dec, _config(**kw))
+    return plain, comp
+
+
+def test_compacting_wave_matches_full():
+    """Early-exit compaction of a non-fused decoder gives the plain
+    full-depth wave's pooled counts (same LLRs)."""
+    plain, comp = _plain_and_compacting(_engine_decoder(), early_exit_iters=3,
+                                        survivor_budget=192)
+    for snr in (2.0, 3.0):
+        llr = plain.llr(torch.Generator().manual_seed(42), snr)
+        assert comp.counts(llr) == plain.counts(llr), snr
+    assert dict(comp.kinds) == {"compacted": 2}
+
+
+def test_compacting_wave_overflow_fallback():
+    """More survivors than the budget: the plain wave, still exact."""
+    plain, comp = _plain_and_compacting(_engine_decoder(), early_exit_iters=2,
+                                        survivor_budget=8)
+    llr = plain.llr(torch.Generator().manual_seed(1), 0.0)
+    assert comp.counts(llr) == plain.counts(llr)
+    assert dict(comp.kinds) == {"fallback": 1}
+    # passed weights reach every stage
+    dec = plain.decoder
+    alt = {k: (None if w is None else w * 0.5)
+           for k, w in dec.weights.items()}
+    assert comp.counts(llr, alt) == plain.counts(llr, alt)
+
+
+def test_compacting_wave_fused_stage1_exact():
+    """stage1_fused routes the truncated decode through the fused flooding
+    kernel (its plain version here); the counts equal both the plain wave
+    and the engine-stage-1 compaction. Stage 1 keeps the parent's options,
+    so the parent names f32 storage: the fused kernel's default is bf16,
+    the engine's f32 (as in ldpc_tpu). T1 rounds up to the check schedule;
+    a schedule other than check_every == T1 is refused."""
+    dec = _engine_decoder(check_every=2, dtype=torch.float32)
+    plain = _build_wave(dec, _config())
+    comp = _build_wave(dec, _config(early_exit_iters=2, survivor_budget=192))
+    compf = _build_wave(dec, _config(early_exit_iters=2, survivor_budget=192,
+                                     stage1_fused=True))
+    assert compf.short.qc_options == dict(fused=True, dtype=torch.float32)
+    llr = plain.llr(torch.Generator().manual_seed(17), 2.5)
+    want = plain.counts(llr)
+    assert comp.counts(llr) == want and compf.counts(llr) == want
+    assert dict(compf.kinds) == {"compacted": 1}
+    # early_exit_iters=3 judges stage 1 at the decoder's check at 4
+    assert _build_wave(dec, _config(early_exit_iters=3)).t1 == 4
+    with pytest.raises(ValueError, match="check_every"):
+        _build_wave(_engine_decoder(), _config(early_exit_iters=2,
+                                               stage1_fused=True))

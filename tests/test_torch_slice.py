@@ -111,10 +111,10 @@ def test_unported_routes_refuse():
     fused = dict(fused=True, dtype=torch.float32)
     mk = lambda **kw: lt.make_decoder(code, kind="ms", device="cpu", **kw)
     for dec, kw in [
-        (mk(qc=qc, layered=True), {}),
-        (mk(qc=qc), {}),
         (mk(layered=True), {}),
         (mk(), {}),
+        (mk(qc=qc, layered=True), dict(ste=True)),
+        (mk(qc=qc), dict(return_trajectory=True)),
         (mk(qc=qc, layered=True, qc_options=fused), dict(ste=True)),
         (mk(qc=qc, layered=True, qc_options=fused),
          dict(return_trajectory=True)),
@@ -124,14 +124,17 @@ def test_unported_routes_refuse():
             dec(llr, **kw)
     with pytest.raises(NotImplementedError):
         mk(bucketed=True)
-    # the simulator's unported paths: compaction (or stage1_fused) with a
-    # non-fused parent, mesh sharding, plots
+    # the QC engines run (the non-fused QC routes and the simulator's
+    # compaction over them are ported)
+    for dec in (mk(qc=qc), mk(qc=qc, layered=True)):
+        assert dec(llr).bits.shape == (2, code.n)
     cfg = dict(max_frames=4, wave_size=2, device="cpu")
     for sim_kw in (dict(early_exit_iters=2), dict(early_exit_iters=2,
                                                   stage1_fused=True)):
-        with pytest.raises(NotImplementedError, match="QC engines"):
-            lt.simulate_single_snr(mk(qc=qc), 3.0,
-                                   lt.SimulationConfig(**cfg, **sim_kw))
+        dec = mk(qc=qc, qc_options=dict(check_every=2))
+        assert lt.simulate_single_snr(
+            dec, 3.0, lt.SimulationConfig(**cfg, **sim_kw))[3] == 4
+    # the simulator's unported paths: mesh sharding, plots
     with pytest.raises(NotImplementedError, match="parallel/"):
         lt.LDPCSimulator(lt.SimulationConfig(**cfg), mesh=object())
     sim = lt.LDPCSimulator(lt.SimulationConfig(**cfg))

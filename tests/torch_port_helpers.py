@@ -11,6 +11,21 @@ import ldpc_tpu
 import ldpc_tpu_torch as lt
 from ldpc_tpu.decode.qc_engine import build_qc_graph as jax_build_qc_graph
 
+# one decoder of every variant kind (the make_decoder arguments)
+SMALL_KINDS = {
+    "ms": dict(kind="ms", factor=0.7),
+    "rcq_bc3_bv8": dict(kind="rcq", bc=3, bv=8),
+    "nms_t2": dict(kind="nms", sharing_type=2, init="nms", seed=1),
+    "oms_t2": dict(kind="oms", sharing_type=2, seed=5),
+    "wrcq_t2": dict(kind="wrcq", bc=3, sharing_type=2, init="nms", seed=6),
+    "orcq_t2": dict(kind="orcq", bc=3, sharing_type=2, seed=7),
+    "rcq_bc5_closed": dict(kind="rcq", bc=5, bv=8, closed_qdq=True),
+}
+# the zoo decoder's variant: W-OMS-RCQ, bc=3, bv=8 uniform V2C ladder
+ZOO_LIKE = dict(kind="orcq", bc=3, bv=8, sharing_type=2, seed=3,
+                quantizer_params=((2.0, 1.3), (4.0, 1.3), (6.0, 1.3)),
+                v2c_quantizer_params=((4.0, 1.0), (8.0, 1.0), (12.0, 1.0)))
+
 
 def make_base(mb, nb, lift, seed=0, density=1.0):
     """A random protograph; ``density < 1`` blanks entries but keeps every

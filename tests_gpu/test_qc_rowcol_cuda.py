@@ -1,0 +1,141 @@
+"""The row and column CUDA kernels K5 (``csrc/qc_cn.cu``) and K6
+(``csrc/qc_vn.cu``) against their plain PyTorch versions, on the card (the
+kernels have no CPU mode). Run on a machine with an NVIDIA GPU:
+
+    python -m pytest tests_gpu -m cuda -q
+
+These tests import no JAX. Tolerances: f32 outputs to rtol 1e-6 / atol
+1e-5 with equal signs and exact hard outputs (the kernels are built with
+-fmad=false, so they are expected to be equal); bf16 >= 99.99% of values,
+bits and frames equal (>= 99.9% of frames)."""
+
+import numpy as np
+import pytest
+import torch
+
+import ldpc_tpu_torch as lt
+from ldpc_tpu_torch.decode import engine, qc_engine, qc_rowcol
+
+pytestmark = pytest.mark.cuda
+
+T = 5
+KINDS = {
+    "ms": dict(kind="ms", factor=0.7),
+    "rcq_bc3_bv8": dict(kind="rcq", bc=3, bv=8),
+    "nms_t2": dict(kind="nms", sharing_type=2, init="nms", seed=1),
+    "oms_t2": dict(kind="oms", sharing_type=2, seed=5),
+    "wrcq_t2": dict(kind="wrcq", bc=3, sharing_type=2, init="nms", seed=6),
+    "orcq_t2": dict(kind="orcq", bc=3, sharing_type=2, seed=7),
+    "rcq_bc5_closed": dict(kind="rcq", bc=5, bv=8, closed_qdq=True),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _decoder(**kw):
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 16, size=(3, 7))
+    base[rng.random((3, 7)) < 0.15] = -1
+    base[:, 0] = np.maximum(base[:, 0], 0)  # every row keeps a block
+    base[0] = np.maximum(base[0], 0)        # every column keeps a block
+    code = lt.create_qc_code(base, lift=16, max_iterations=T)
+    return lt.make_decoder(code, max_iterations=T,
+                           qc=lt.build_qc_graph(base, 16), **kw)
+
+
+def _close(got, want, dtype):
+    if dtype == torch.float32:
+        assert torch.equal(got < 0, want < 0)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+    else:
+        assert (got == want).float().mean().item() >= 0.9999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(KINDS))
+def test_kernels_match_plain(card, name, dtype):
+    """Every row through K5 and every column through K6 at the first and
+    the last iteration, B=160 (a partial thread block)."""
+    dec = _decoder(**KINDS[name])
+    qc, spec = dec.qc, dec.spec
+    gen = torch.Generator(device=card).manual_seed(2)
+    llr = lt.awgn_llr(gen, torch.zeros((160, dec.code.n), device=card), 2.5)
+    llr_T = qc_engine._storage(llr, qc, dtype)
+    tabs = engine._tables(dec.weights, spec, T, qc.num_blocks, card)
+    v2c = llr_T.index_select(0, qc_engine._graph_tables(qc, card)
+                             ["block_col"])
+    c2v = (3.0 * torch.randn(v2c.shape, generator=gen, device=card)
+           ).to(dtype)
+    for t in (0, T - 1):
+        before = (qc_rowcol.CN_LAUNCHES, qc_rowcol.VN_LAUNCHES)
+        got, want = torch.zeros_like(v2c), torch.zeros_like(v2c)
+        for i in range(qc.mb):
+            qc_rowcol.cn_row(v2c, got, tabs, qc, spec, i, t)
+            qc_rowcol._cn_row_plain(v2c, want, tabs, qc, spec, i, t)
+        _close(got, want, dtype)
+        gv, wv = torch.zeros_like(v2c), torch.zeros_like(v2c)
+        gp, wp = torch.zeros_like(llr_T), torch.zeros_like(llr_T)
+        for j in range(qc.nb):
+            qc_rowcol.vn_col(c2v, llr_T, gv, gp, tabs, qc, spec, j, t)
+            qc_rowcol._vn_col_plain(c2v, llr_T, wv, wp, tabs, qc, spec, j, t)
+        torch.cuda.synchronize()
+        _close(gv, wv, dtype)
+        _close(gp, wp, dtype)
+        # one launch per row and per column; the plain versions count none
+        assert (qc_rowcol.CN_LAUNCHES, qc_rowcol.VN_LAUNCHES) == (
+            before[0] + qc.mb, before[1] + qc.nb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_matches_plain(card, dtype):
+    """The whole decode on the zoo decoder (T=4, check_every 2) against
+    its plain driver on the card; an empty batch is a valid call."""
+    dec = lt.load_pretrained("worcq_bc3_qc9472", max_iterations=4)
+    gen = torch.Generator(device=card).manual_seed(4)
+    llr = lt.awgn_llr(gen, torch.zeros((96, dec.code.n), device=card), 6.0)
+    args = dict(qc=dec.qc, spec=dec.spec, max_iterations=4, check_every=2,
+                dtype=dtype, batch_tile=32)
+    out = lt.qc_pallas_decode_batch(llr, dec.weights, **args)
+    ref = qc_rowcol._qc_pallas_plain(llr, dec.weights, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(out.iterations, ref.iterations)
+    if dtype == torch.float32:
+        assert torch.equal(out.bits, ref.bits)
+        assert torch.equal(out.success, ref.success)
+        torch.testing.assert_close(out.posterior, ref.posterior, rtol=1e-6,
+                                   atol=1e-5)
+    else:
+        assert (out.bits == ref.bits).float().mean().item() >= 0.9999
+        assert (out.success == ref.success).float().mean().item() >= 0.999
+    empty = lt.qc_pallas_decode_batch(llr[:0], dec.weights, **args)
+    assert empty.bits.shape == (0, dec.code.n)
+
+
+def test_steady_state_call_copies_nothing_from_host(card):
+    """After the first call has built the device tables, a decode through
+    K5/K6 makes no host-to-device copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dec = lt.load_pretrained("worcq_bc3_qc9472")
+    gen = torch.Generator(device=card).manual_seed(5)
+    llr = lt.awgn_llr(gen, torch.zeros((256, dec.code.n), device=card), 6.5)
+    args = dict(qc=dec.qc, spec=dec.spec, max_iterations=10,
+                dtype=torch.bfloat16)
+    lt.qc_pallas_decode_batch(llr, dec.weights, **args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lt.qc_pallas_decode_batch(llr, dec.weights, **args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    for kernel in ("qc_cn_kernel", "qc_vn_kernel"):
+        assert any(kernel in n for n in names), \
+            "the profiler saw no kernel; it cannot show copies either"
+    assert not [n for n in names if "HtoD" in n]
