@@ -145,3 +145,19 @@ extern "C" int ldpc_qc_cn(const void* v2c, void* c2v, const void* beta,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
 }
+
+// resident CTAs per SM of the kernel for a row of degree dc (-1 on a CUDA
+// error)
+extern "C" int ldpc_qc_cn_occupancy(int dc, int is_bf16) {
+  int blocks = -1;
+  const size_t smem =
+      (size_t)dc * kFrames * (is_bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  const void* fn = is_bf16 ? (const void*)qc_cn_kernel<__nv_bfloat16>
+                           : (const void*)qc_cn_kernel<float>;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kFrames,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}

@@ -172,10 +172,17 @@ def _launch(flooding: bool, llr, tabs, qc: QCGraph, spec: VariantSpec,
     L, dev = qc.lift, llr.device
     if L > 1024:
         raise ValueError(f"lift {L} > 1024 threads per block")
-    elt = llr.element_size()
-    # flooding keeps LLRs + the whole message state on chip; layered keeps
-    # LLRs + column sums (its c2v memory is a global scratch)
-    smem = (qc.nb + qc.num_blocks) * L * elt if flooding else 2 * n * elt
+    is_bf16 = int(llr.dtype == torch.bfloat16)
+    q_mode = qdq_mode(spec.qparams, spec.q_levels, closed)
+    v_mode = qdq_mode(spec.v2c_qparams, spec.v2c_levels, closed)
+    lib = load_library()
+    # flooding keeps the LLRs, the column sums and the compressed check
+    # state on chip (its layout is the library's); layered keeps LLRs +
+    # column sums (its c2v memory is a global scratch)
+    smem = (lib.ldpc_fused_flooding_smem(
+        qc.nb, qc.mb, qc.num_blocks, L, is_bf16, _QMODES[q_mode],
+        spec.q_levels, _QMODES[v_mode], spec.v2c_levels) if flooding
+        else 2 * n * llr.element_size())
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"kernel needs {smem} B of shared memory per frame, "
@@ -186,20 +193,16 @@ def _launch(flooding: bool, llr, tabs, qc: QCGraph, spec: VariantSpec,
     ok = torch.empty((B,), dtype=torch.uint8, device=dev)
     if B == 0:
         return post, bits, ok.bool()
-    q_mode = qdq_mode(spec.qparams, spec.q_levels, closed)
-    v_mode = qdq_mode(spec.v2c_qparams, spec.v2c_levels, closed)
     with_vqdq = (spec.v2c_qparams is not None or
                  spec.v2c_thresholds is not None)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr()) if x is not None else None
     tables = [ptr(tabs["beta"]), ptr(tabs["alpha"]),
               ptr(tabs["thr"]), tabs["thr"].shape[1], ptr(tabs["qp"]),
               ptr(tabs["vthr"]), tabs["vthr"].shape[1], ptr(tabs["vqp"])]
-    sizes = [B, qc.nb, qc.mb, qc.num_blocks, L, T,
-             int(llr.dtype == torch.bfloat16), _KINDS[spec.kind],
+    sizes = [B, qc.nb, qc.mb, qc.num_blocks, L, T, is_bf16, _KINDS[spec.kind],
              int(spec.alpha_in_cn), _QMODES[q_mode], spec.q_levels,
              int(with_vqdq), _QMODES[v_mode], spec.v2c_levels,
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)]
-    lib = load_library()
     with torch.cuda.device(dev):  # the launch goes to the current device
         if flooding:
             err = lib.ldpc_fused_flooding(
