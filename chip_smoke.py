@@ -11,9 +11,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    nvcc per source, all at once, linked into one library);
 3. K1 vs plain: the fused layered kernel against its plain PyTorch
    version on the card, for every variant kind on a small code (f32 and
-   bf16, lean and full, B=37) and on the bench code (5x37, lift 256), bit
-   for bit in both types: bits, success and the posteriors' bit patterns
-   (NaN where the plain version has NaN);
+   bf16, lean and full, B=37), on the bench code (5x37, lift 256) and on
+   the zoo's trained layered decoder ``worcq_bc3_layered_t6`` (W-OMS-RCQ,
+   sharing type 2, on the bench code) at B=256, bit for bit in both
+   types: bits, success and the posteriors' bit patterns (NaN where the
+   plain version has NaN); the zoo decoder timed at B=32768, T=6, and
+   K1's registers, spills, shared memory and resident CTAs per SM;
 4. bench path: the bench decoder (3-bit RCQ with the DDE ladder, 8-bit
    uniform V2C quantizer, layered, T=6, bf16, lean) under the {3, 6}
    two-checkpoint early exit with survivor budget 128, on B=32768 all-zero
@@ -51,15 +54,18 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
-rate, and its float32 operations (counted per edge and iteration from the
-function the kernel computes, a transcendental as one, the quantizers'
-per-iteration constants not per edge) over 33.5e12 per second: the
-kernels build with ``-fmad=false``, so every add, multiply, compare and
-select is its own instruction, and the card issues at most one per FP32
-lane per clock (132 SMs x 128 lanes x 1.98 GHz; the published 67 TFLOP/s
-counts an FMA as two). Phases 5 and 7 print each kernel's registers and
-spills (the build's ptxas report) and its resident CTAs per SM
-(``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the library).
+rate, and its float32 operations (counted from the function the kernel
+computes, a transcendental as one, the quantizers' per-iteration
+constants not per edge, and each check's c2v transform and quantizer once
+per value the function must compute: per edge, or four times per check
+on a row whose blocks share (beta, alpha) at the iteration) over 33.5e12
+per second: the kernels build with ``-fmad=false``, so every add,
+multiply, compare and select is its own instruction, and the card issues
+at most one per FP32 lane per clock (132 SMs x 128 lanes x 1.98 GHz; the
+published 67 TFLOP/s counts an FMA as two). Phases 3, 5 and 7 print each
+kernel's registers and spills (the build's ptxas report) and its
+resident CTAs per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+through the library).
 No single PyTorch call computes an LDPC decode or one of its row or
 column updates, so ``library_ms`` is null.
 
@@ -97,6 +103,8 @@ BENCH_KW = dict(
 # at 5 the 6.5 dB waves overflow the budget too (the survivor probe below
 # prints the count for 5..8), and the compacted wave must run there
 ZOO_ENTRY, SIM_T1, SIM_WAVE, SIM_BUDGET = "worcq_bc3_qc9472", 6, 32768, 8192
+# phase 3: the zoo's trained layered decoder on the bench code
+ZOO_LAYERED = "worcq_bc3_layered_t6"
 SIM_CONFIG = dict(snr_range=(6.0, 6.5), snr_step=0.25, max_frames=131072,
                   max_errors=2000, min_frames=16384, wave_size=SIM_WAVE,
                   early_exit_iters=SIM_T1, survivor_budget=SIM_BUDGET,
@@ -247,12 +255,15 @@ def qdq_ops(mode, levels):
 
 
 def edge_ops(spec, flooding):
-    """float32 operations per edge and iteration of the layered (K1) or
-    flooding (K4) decode function, from its plain version: a
-    transcendental counts as one, per-iteration constants are not counted
-    (:func:`qdq_ops`). K4 recomputes each c2v once more from its
-    compressed check state; that is the design's cost, not the
-    function's, and is not counted either."""
+    """float32 operations of the layered (K1) or flooding (K4) decode
+    function per iteration: (per edge, per c2v computed). A transcendental
+    counts as one, per-iteration constants are not counted
+    (:func:`qdq_ops`). The c2v transform, CN quantizer and rounding are
+    counted once per c2v the function must compute (:func:`c2v_computed`):
+    a check of a row whose blocks share (beta, alpha) sends at most four
+    distinct values. What a kernel's design adds (K4's second c2v from its
+    compressed state, the TPU layered kernel's second v2c per edge for
+    its sign) is not counted."""
     from ldpc_tpu_torch.decode.engine import qdq_mode
 
     def q_ops(qparams, levels):
@@ -266,34 +277,57 @@ def edge_ops(spec, flooding):
               spec.v2c_thresholds is not None)
     v_q = q_ops(spec.v2c_qparams, spec.v2c_levels) if with_v else 0
     min_tree, leave_one_out = 8, 5  # |x|, compares, selects, count; sign
+    send = transform + cn_q + 1
     if flooding:
-        # CN: min tree, leave-one-out, transform, qdq, round; VN: column
-        # sum, extrinsic and v2c (each with its rounding), bv qdq, round
-        return (min_tree + leave_one_out + transform + cn_q + 1 +
-                2 + 2 + 2 + v_q + 1)
-    # layered pass 1: extrinsic, v2c, min tree; pass 2: v2c again,
-    # leave-one-out, transform, qdq, round, column sum
-    return 2 + 2 + min_tree + 2 + leave_one_out + transform + cn_q + 1 + 2
+        # CN: min tree, leave-one-out; VN: column sum, extrinsic and v2c
+        # (each with its rounding), bv qdq, round
+        return min_tree + leave_one_out + 2 + 2 + 2 + v_q + 1, send
+    # layered pass 1: extrinsic, v2c, min tree; pass 2: leave-one-out,
+    # column sum
+    return 2 + 2 + min_tree + leave_one_out + 2, send
+
+
+def c2v_computed(dec, T_, rows=None):
+    """c2v values per lifted check the decode function must compute,
+    summed over iterations 0..T_-1 and the base rows (all, or ``rows``):
+    min(4, dc) on a row whose blocks share (beta, alpha) at the iteration
+    bit for bit (c2v(+-1, min1 or min2)), dc on any other."""
+    from ldpc_tpu_torch.decode import engine
+    qc = dec.qc
+    tabs = engine._tables(dec.weights, dec.spec, dec.max_iterations,
+                          qc.num_blocks, dec.device)
+    beta, alpha = tabs["beta"].cpu(), tabs["alpha"].cpu()
+    total = 0
+    for t in range(T_):
+        for i in (range(qc.mb) if rows is None else rows):
+            idx = [int(b) for b in qc.row_blocks[i]]
+            shared = all(len(torch.unique(w[t, idx].view(torch.int32))) == 1
+                         for w in (beta, alpha))
+            total += min(4, len(idx)) if shared else len(idx)
+    return total
 
 
 def bound(dec, B, T_, flooding, lean=True, elt=2):
     """(bound_ms, bound_by) of one fused decode of B frames, T_ iterations:
     LLRs in and bits (lean) or posterior out once, success flags out."""
-    n, E = dec.code.n, dec.qc.num_blocks * dec.qc.lift
+    n, L = dec.code.n, dec.qc.lift
+    E = dec.qc.num_blocks * L
     nbytes = B * n * (elt + (1 if lean else elt)) + B
-    ops = B * E * T_ * edge_ops(dec.spec, flooding)
+    per_edge, send = edge_ops(dec.spec, flooding)
+    ops = B * (E * T_ * per_edge + L * c2v_computed(dec, T_) * send)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations")
 
 
 def rowcol_ops(spec):
-    """float32 operations of K5 per edge, and of K6 per edge and per
-    variable, of the functions csrc/qc_cn.cu and csrc/qc_vn.cu compute,
-    with their quantizer routing (staircase up to 16 levels, power law
-    above) and :func:`qdq_ops`'s counts. A transcendental (powf) counts as
-    one, though it costs tens of instructions, so K6's count is a lower
-    bound; its bound is its bytes."""
+    """float32 operations of the functions csrc/qc_cn.cu (K5) and
+    csrc/qc_vn.cu (K6) compute, with their quantizer routing (staircase up
+    to 16 levels, power law above) and :func:`qdq_ops`'s counts: K5 per
+    edge and per c2v computed (:func:`c2v_computed`), K6 per edge and per
+    variable. A transcendental (powf) counts as one, though it costs tens
+    of instructions, so K6's count is a lower bound; its bound is its
+    bytes."""
     def q_ops(levels):
         return qdq_ops("staircase" if levels <= 16 else "power", levels)
 
@@ -303,24 +337,25 @@ def rowcol_ops(spec):
     with_v = (spec.v2c_qparams is not None or
               spec.v2c_thresholds is not None)
     v_q = q_ops(spec.v2c_levels) if with_v else 0
-    # K5: min tree, leave-one-out, transform, qdq, round
-    cn = 8 + 5 + transform + (q_ops(spec.q_levels) if quantized else 0) + 1
+    # K5: min tree, leave-one-out per edge; transform, qdq, round per c2v
+    cn_send = transform + (q_ops(spec.q_levels) if quantized else 0) + 1
     # K6 per edge: column-sum add, extrinsic, v2c (alpha multiply unless
     # OMS), qdq, round; per variable: posterior add, qdq, round
     vn_edge = 1 + 1 + (1 if spec.alpha_in_cn else 2) + v_q + 1
-    return cn, vn_edge, 1 + v_q + 1
+    return 8 + 5, cn_send, vn_edge, 1 + v_q + 1
 
 
 def rowcol_bounds(dec, B, elt=2):
     """(bound_ms, bound_by) of one K5 launch on base row 0 and of one K6
-    launch on base column 0, at B frames of elt-byte storage: each input
-    message read once and each output written once, and the operations of
-    :func:`rowcol_ops`."""
+    launch on base column 0 at iteration 0, at B frames of elt-byte
+    storage: each input message read once and each output written once,
+    and the operations of :func:`rowcol_ops`."""
     qc, L = dec.qc, dec.qc.lift
     dc, dv = len(qc.row_blocks[0]), len(qc.col_blocks[0])
-    cn, vn_edge, vn_var = rowcol_ops(dec.spec)
+    cn_edge, cn_send, vn_edge, vn_var = rowcol_ops(dec.spec)
+    cn = cn_edge * dc + cn_send * c2v_computed(dec, 1, rows=[0])
     out = []
-    for nbytes, ops in ((2 * dc * L * B * elt, cn * dc * L * B),
+    for nbytes, ops in ((2 * dc * L * B * elt, cn * L * B),
                         ((2 * dv + 2) * L * B * elt,
                          (vn_edge * dv + vn_var) * L * B)):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -401,7 +436,7 @@ def rowcol_launches(name, dec, llr, dtype, rows, cols):
 def phase7(code, qc, zdec, gen, dev, card):
     """K5 and K6 against their plain versions on the card, and timed."""
     import ldpc_tpu_torch as lt
-    from ldpc_tpu_torch.decode import _build, qc_rowcol
+    from ldpc_tpu_torch.decode import _build, fused, qc_rowcol
 
     print("[7 K5/K6 vs plain]")
     e5 = e6 = 0.0
@@ -445,9 +480,10 @@ def phase7(code, qc, zdec, gen, dev, card):
     del st, o5, o6
     torch.cuda.empty_cache()
     lib = _build.load_library()
-    qc0 = zdec.qc
+    qc0, spec = zdec.qc, zdec.spec
     print(kernel_facts("qc_cn", lib.ldpc_qc_cn_occupancy(
-        len(qc0.row_blocks[0]), 1)) + f"  [{card}]")
+        len(qc0.row_blocks[0]), 1, fused._KINDS[spec.kind],
+        spec.q_levels)) + f"  [{card}]")
     print(kernel_facts("qc_vn", lib.ldpc_qc_vn_occupancy(
         len(qc0.col_blocks[0]), zdec.spec.v2c_levels, 1)) + f"  [{card}]")
     return dict(qc_cn=times["qc_cn"] + (e5,), qc_vn=times["qc_vn"] + (e6,))
@@ -477,17 +513,41 @@ def kernel_facts(key, ctas):
     """One line on the bf16 instance of a kernel that the main path runs:
     its registers and spills (ptxas) and its resident CTAs per SM."""
     from ldpc_tpu_torch.decode import _build
-    inst = {"fused_flooding":
+    inst = {"fused_layered":
+                "fused_layered_kernelI13__nv_bfloat16Li2ELi768ELb1E",
+            "fused_flooding":
                 "fused_flooding_kernelI13__nv_bfloat16Li4ELi768E",
-            "qc_cn": "qc_cn_kernelI13__nv_bfloat16E",
+            "qc_cn": "qc_cn_kernelI13__nv_bfloat16Li4ELb1E",
             "qc_vn": "qc_vn_kernelI13__nv_bfloat16Li5E"}[key]
     stats = ptxas_stats(_build.library_path().with_suffix(".log"))
     st = next((v for k, v in stats.items() if inst in k), {})
-    what = {"qc_vn": ", dv=5", "fused_flooding": ", orcq, L <= 768"}.get(
-        key, "")
+    what = {"qc_vn": ", dv=5", "fused_flooding": ", orcq, L <= 768",
+            "fused_layered": ", rcq, L <= 768, state on chip",
+            "qc_cn": ", orcq, dc <= 64"}.get(key, "")
     return (f"  {key} (bf16{what}): "
             f"{st.get('registers')} registers, spill stores/loads "
             f"{st.get('spills')} B, {ctas} resident CTAs per SM")
+
+
+def k1_facts(dec, card):
+    """K1's registers and spills (bf16 instance of the decoder's kind),
+    shared memory per CTA and resident CTAs per SM at ``dec``'s shape, as
+    the library lays it out."""
+    from ldpc_tpu_torch.decode import _build, fused
+    from ldpc_tpu_torch.decode.engine import qdq_mode
+    qc, spec = dec.qc, dec.spec
+    lib = _build.load_library()
+    sizes = (qc.nb, qc.mb, qc.num_blocks, qc.lift,
+             max(len(r) for r in qc.row_blocks), 1)
+    modes = (fused._QMODES[qdq_mode(spec.qparams, spec.q_levels)],
+             spec.q_levels,
+             fused._QMODES[qdq_mode(spec.v2c_qparams, spec.v2c_levels)],
+             spec.v2c_levels)
+    ctas = lib.ldpc_fused_layered_occupancy(*sizes, fused._KINDS[spec.kind],
+                                            *modes, 1)
+    return (kernel_facts("fused_layered", ctas) +
+            f", {lib.ldpc_fused_layered_smem(*sizes, *modes, 1)} B of "
+            f"shared memory per CTA  [{card}]")
 
 
 def reset_counts():
@@ -667,6 +727,13 @@ def main():
     for dtype in (torch.float32, torch.bfloat16):
         max_err = max(max_err, compare("bench", dec, llr256, dtype, False))
     compare("bench", dec, llr256, torch.bfloat16, True)
+    ldec = lt.load_pretrained(ZOO_LAYERED)
+    lllr = lt.awgn_llr(gen, torch.zeros((256, ldec.code.n), device=dev),
+                       6.25)
+    for dtype in (torch.float32, torch.bfloat16):
+        max_err = max(max_err, compare("zoo layered", ldec, lllr, dtype,
+                                       False))
+    compare("zoo layered", ldec, lllr, torch.bfloat16, True)
 
     # kernel vs plain times at the main path's shapes (bf16, lean)
     times = {}
@@ -681,6 +748,17 @@ def main():
         times[B_] = (k_ms, p_ms, k2_ms, p2_ms)
         print(f"  time B={B_} T={T_}: kernel {k_ms:.4f} / {k2_ms:.4f} ms, "
               f"plain {p_ms:.2f} / {p2_ms:.2f} ms  [{card}]")
+    # the zoo decoder at full width, T=6 (bf16, lean)
+    xz = lt.awgn_llr(gen, torch.zeros((B_MAIN, ldec.code.n), device=dev),
+                     6.25).to(torch.bfloat16)
+    zl = [time_ms(lambda: kernel_on(xz, ldec, ldec.max_iterations, True), 3)
+          for _ in range(2)]
+    zb = bound(ldec, B_MAIN, ldec.max_iterations, flooding=False)
+    print(f"  time {ZOO_LAYERED} B={B_MAIN} T={ldec.max_iterations}: kernel "
+          f"{zl[0]:.3f} / {zl[1]:.3f} ms, bound {zb[0]:.3f} ms ({zb[1]})  "
+          f"[{card}]")
+    del xz
+    print(k1_facts(dec, card))
 
     # ---- 4: the main path at full width
     two_ck = lt.make_two_checkpoint_decoder(dec, t1=T1, survivor_budget=S)

@@ -1,11 +1,12 @@
 // Device helpers shared by the kernels (fused_layered.cu,
 // fused_flooding.cu, qc_cn.cu, qc_vn.cu): storage-type loads, stores and
-// rounding, NaN-aware min, and K2, the in-kernel quantize-dequantize.
+// rounding, NaN-aware min, K2 (the in-kernel quantize-dequantize), the
+// variants' check-node transform, and K5's and K6's 8-byte frame accesses.
 //
-// K2 replaces ldpc_tpu/decode/pallas_fused.py::_kernel_qdq (with the static
-// routing of _qdq_mode done by the Python wrapper). Its plain PyTorch
-// counterparts are ldpc_tpu_torch/quantizer.py's staircase_qdq,
-// uniform_qdq and power_qdq.
+// K2 replaces ldpc_tpu/decode/pallas_fused.py::_kernel_qdq and
+// pallas_qc.py::_kernel_qdq (with the static routing of _qdq_mode done by
+// the Python wrappers). Its plain PyTorch counterparts are
+// ldpc_tpu_torch/quantizer.py's staircase_qdq, uniform_qdq and power_qdq.
 //
 // Numerics. Every storage-type operation is a float32 operation followed by
 // round-to-nearest-even to the storage type S (bf16 or f32); the quantizers
@@ -52,56 +53,15 @@ __device__ __forceinline__ float relu(float x) {
   return (x < 0.0f) ? 0.0f : x;  // NaN passes through
 }
 
-// K2: quantize-dequantize of x for iteration t (quantizer.py forms)
-__device__ float qdq(float x, int t, int mode, int levels,
-                     const float* __restrict__ thr, int thr_w,
-                     const float* __restrict__ qp) {
-  const float mag = fabsf(x);
-  float snapped;
-  if (mode == kStaircase) {
-    const float* row = thr + t * thr_w;
-    snapped = 0.0f;
-    for (int j = 1; j < levels; ++j) {
-      const float step = row[j] - row[j - 1];
-      snapped = snapped + ((mag >= row[j]) ? step : 0.0f);
-    }
-  } else {
-    if (mag != mag) return mag;  // the plain versions' clamps keep a NaN
-    const float C = qp[2 * t];
-    const float M = (float)(levels - 1);
-    float idx;
-    if (mode == kUniform) {
-      const float scale = M / C;
-      const float step = C / M;
-      idx = fminf(fmaxf(floorf(mag * scale), 0.0f), M);
-      const float up = fminf(idx + 1.0f, M) * step;
-      if (mag >= up && idx < M) idx = idx + 1.0f;
-      const float down = idx * step;
-      if (mag < down) idx = fmaxf(idx - 1.0f, 0.0f);
-      snapped = idx * step;
-    } else {
-      const float gamma = qp[2 * t + 1];
-      const float r = fminf(fmaxf(mag / C, 0.0f), 1.0f);
-      idx = floorf(M * powf(r, 1.0f / gamma));
-      idx = fminf(fmaxf(idx, 0.0f), M);
-      const float up = C * powf(fminf(idx + 1.0f, M) / M, gamma);
-      if (mag >= up && idx < M) idx = idx + 1.0f;
-      const float down = C * powf(idx / M, gamma);
-      if (mag < down) idx = fmaxf(idx - 1.0f, 0.0f);
-      snapped = C * powf(idx / M, gamma);
-    }
-  }
-  snapped = (snapped < kSignTiny) ? kSignTiny : snapped;
-  return (x < 0.0f) ? -snapped : snapped;
-}
-
-// K2 with its per-iteration work done once (K4, K6): the quantizer of one
-// iteration as constants (M / C, C / M and 1 / gamma divided once, the
-// same IEEE divisions qdq does per call) and a table of float32 values:
-// the staircase's thresholds, or the power law's reconstruction levels
-// C * powf(i / M, gamma), i = 0..M, the expression qdq evaluates for its
-// index correction and its snapped value. qdq_staged then gives qdq's bits
-// with one powf per call (none when 1 / gamma == 1) instead of four.
+// K2, the quantize-dequantize of x for iteration t (quantizer.py's
+// staircase_qdq, uniform_qdq and power_qdq), with its per-iteration work
+// done once: the quantizer of one iteration as constants (M / C, C / M and
+// 1 / gamma, the plain versions' IEEE divisions, divided once) and a table
+// of float32 values: the staircase's thresholds, or the power law's
+// reconstruction levels C * powf(i / M, gamma), i = 0..M, the expression
+// the plain version evaluates for its index corrections and its snapped
+// value. qdq_staged then costs one powf per call (none when 1 / gamma ==
+// 1) instead of four.
 struct QConst {
   int mode, levels;
   float C, M, scale, step, gamma, inv_gamma;
@@ -139,7 +99,7 @@ __device__ __noinline__ float powf_call(float r, float e) {
   return powf(r, e);
 }
 
-// the uniform closed form of qdq with its constants staged
+// the uniform closed form of K2 with its constants staged
 __device__ __forceinline__ float qdq_uniform(float x, const QConst& q) {
   const float mag = fabsf(x);
   if (mag != mag) return mag;  // the plain versions' clamps keep a NaN
@@ -179,8 +139,8 @@ __device__ __forceinline__ float qdq_staged(float x, const QConst& q,
   return (x < 0.0f) ? -snapped : snapped;
 }
 
-// the variant's check-to-variable transform of the leave-one-out sign and
-// magnitude, for iteration t and block b (beta bb, alpha ab)
+// the variant of a decode: its kind, whether alpha subtracts inside the
+// check node, and its CN quantizer's routing and tables
 struct Variant {
   int kind, alpha_in_cn;
   int q_mode, q_levels, thr_w;
@@ -188,7 +148,26 @@ struct Variant {
   const float* qp;   // [T, 2]
 };
 
-// the transform of kind KIND (compile time) with the quantizer quantize
+// a value known at compile time, to pick the instance of a generic lambda
+// (a loop specialised on what its edges do)
+template <int N>
+struct Const {
+  static constexpr int value = N;
+};
+
+// a quantizer of one iteration as a kernel applies it: its constants and
+// its table (in shared memory)
+struct Quant {
+  QConst q;
+  const float* tab;
+  __device__ __forceinline__ float operator()(float x) const {
+    return qdq_staged(x, q, tab);
+  }
+};
+
+// the variant's check-to-variable transform of the leave-one-out sign and
+// magnitude for block b (beta bb, alpha ab) of kind KIND (compile time),
+// with the quantizer quantize
 template <int KIND, typename Q>
 __device__ __forceinline__ float c2v_kind(int alpha_in_cn, float loo_sign,
                                           float loo_mag, float bb, float ab,
@@ -208,20 +187,71 @@ __device__ __forceinline__ float c2v_kind(int alpha_in_cn, float loo_sign,
   }
 }
 
-__device__ __forceinline__ float c2v(const Variant& v, float loo_sign,
-                                     float loo_mag, float bb, float ab,
-                                     int t) {
-  const auto q = [&](float x) {
-    return qdq(x, t, v.q_mode, v.q_levels, v.thr, v.thr_w, v.qp);
-  };
-  const int aic = v.alpha_in_cn;
-  switch (v.kind) {
-    case kNms: return c2v_kind<kNms>(aic, loo_sign, loo_mag, bb, ab, q);
-    case kOms: return c2v_kind<kOms>(aic, loo_sign, loo_mag, bb, ab, q);
-    case kRcq: return c2v_kind<kRcq>(aic, loo_sign, loo_mag, bb, ab, q);
-    case kWrcq: return c2v_kind<kWrcq>(aic, loo_sign, loo_mag, bb, ab, q);
-    default: return c2v_kind<kOrcq>(aic, loo_sign, loo_mag, bb, ab, q);
+// the two S values at p, p + 1 (8-byte aligned in f32, 4 in bf16)
+__device__ __forceinline__ void ld_pair(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void ld_pair(const __nv_bfloat16* p, float& a,
+                                        float& b) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  a = __uint_as_float(w << 16);
+  b = __uint_as_float(w & 0xffff0000u);
+}
+
+// K5, K6: V consecutive frames of S in one 8-byte access, 4 bf16 or 2 f32
+// frames (4- and 16-byte accesses measured slower in K6 on the H100,
+// PERF.md)
+template <typename S>
+struct Frames {
+  static constexpr int V = 8 / (int)sizeof(S);
+};
+
+__device__ __forceinline__ void unpack(uint32_t w, float* x, float) {
+  x[0] = __uint_as_float(w);
+}
+__device__ __forceinline__ void unpack(uint32_t w, float* x, __nv_bfloat16) {
+  x[0] = __uint_as_float(w << 16);  // element 0 is the low half
+  x[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t pack(const float* x, float) {
+  return __float_as_uint(x[0]);
+}
+__device__ __forceinline__ uint32_t pack(const float* x, __nv_bfloat16) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x[0])) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x[1])) << 16);
+}
+
+// frames f0.. of one [*, B] row; n = B - f0 of them are in the batch; vec:
+// one 8-byte access (B % V == 0 and the tensor 8-byte aligned), else frame
+// by frame
+template <typename S>
+__device__ __forceinline__ void load_frames(const S* p, int vec, int n,
+                                            float (&x)[Frames<S>::V]) {
+  constexpr int V = Frames<S>::V, E = V / 2;  // elements per 32-bit word
+  if (vec) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    unpack(r.x, &x[0], S());
+    unpack(r.y, &x[E], S());
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) x[i] = (i < n) ? ld(p + i) : 0.0f;
   }
 }
+template <typename S>
+__device__ __forceinline__ void store_frames(S* p, int vec, int n,
+                                             const float (&x)[Frames<S>::V]) {
+  constexpr int V = Frames<S>::V, E = V / 2;
+  if (vec) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack(&x[0], S()),
+                                              pack(&x[E], S()));
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (i < n) st(p + i, x[i]);
+  }
+}
+
 
 }  // namespace

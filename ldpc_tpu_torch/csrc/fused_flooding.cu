@@ -116,19 +116,6 @@ struct Chk<float> {
 // sign bits of that word use bits 0..13 (nw below)
 constexpr int kMetaShift = 14;
 
-// the two S values at p, p + 1 (8-byte aligned in f32, 4 in bf16)
-__device__ __forceinline__ void ld_pair(const float* p, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x;
-  b = v.y;
-}
-__device__ __forceinline__ void ld_pair(const __nv_bfloat16* p, float& a,
-                                        float& b) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-  a = __uint_as_float(w << 16);
-  b = __uint_as_float(w & 0xffff0000u);
-}
-
 // byte offsets of the shared-memory regions of one CTA, each aligned for
 // its type (ldpc_fused_flooding_smem reports the total)
 struct Layout {
@@ -162,16 +149,6 @@ __host__ __device__ Layout layout(int nb, int mb, int NB, int L, int q_mode,
   y.total = o;
   return y;
 }
-
-// a quantizer of one iteration as the kernel applies it: its constants
-// and its table in shared memory
-struct Quant {
-  QConst q;
-  const float* tab;
-  __device__ __forceinline__ float operator()(float x) const {
-    return qdq_staged(x, q, tab);
-  }
-};
 
 // MAXT: the most threads (lift L) the instance takes; 768 lets ptxas use 80
 // registers a thread (3 CTAs of 256 threads per SM), 1024 only 64

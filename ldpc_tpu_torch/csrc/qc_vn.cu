@@ -55,56 +55,6 @@ struct VnParams {
   int vec;  // 8-byte accesses: B % V == 0 and every tensor aligned
 };
 
-// V consecutive frames of S in one 8-byte access: 4 bf16 or 2 f32 frames
-// (4- and 16-byte accesses measured slower on the H100, PERF.md)
-template <typename S>
-struct Frames {
-  static constexpr int V = 8 / (int)sizeof(S);
-};
-
-__device__ __forceinline__ void unpack(uint32_t w, float* x, float) {
-  x[0] = __uint_as_float(w);
-}
-__device__ __forceinline__ void unpack(uint32_t w, float* x, __nv_bfloat16) {
-  x[0] = __uint_as_float(w << 16);  // element 0 is the low half
-  x[1] = __uint_as_float(w & 0xffff0000u);
-}
-__device__ __forceinline__ uint32_t pack(const float* x, float) {
-  return __float_as_uint(x[0]);
-}
-__device__ __forceinline__ uint32_t pack(const float* x, __nv_bfloat16) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x[0])) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x[1])) << 16);
-}
-
-// frames f0.. of one [*, B] row; n = B - f0 of them are in the batch
-template <typename S>
-__device__ __forceinline__ void load_frames(const S* p, int vec, int n,
-                                            float (&x)[Frames<S>::V]) {
-  constexpr int V = Frames<S>::V, E = V / 2;  // elements per 32-bit word
-  if (vec) {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    unpack(r.x, &x[0], S());
-    unpack(r.y, &x[E], S());
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) x[i] = (i < n) ? ld(p + i) : 0.0f;
-  }
-}
-template <typename S>
-__device__ __forceinline__ void store_frames(S* p, int vec, int n,
-                                             const float (&x)[Frames<S>::V]) {
-  constexpr int V = Frames<S>::V, E = V / 2;
-  if (vec) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(pack(&x[0], S()),
-                                              pack(&x[E], S()));
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i)
-      if (i < n) st(p + i, x[i]);
-  }
-}
-
 // DV = the column's degree, or 0: any degree, the messages read twice
 template <typename S, int DV>
 __global__ void __launch_bounds__(kThreads) qc_vn_kernel(VnParams p) {

@@ -40,7 +40,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # csrc/fused_layered.cu
     "ldpc_fused_layered":
-        [_P] * 8 + [_I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 14 + [_P],
+        [_P] * 8 + [_I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    "ldpc_fused_layered_smem": [_I] * 11,
+    "ldpc_fused_layered_state_bytes": [_I] * 10,
+    "ldpc_fused_layered_occupancy": [_I] * 12,
     # csrc/fused_flooding.cu
     "ldpc_fused_flooding":
         [_P] * 7 + [_I, _P, _P, _I, _P] + [_P] * 5 + [_I] * 14 + [_P],
@@ -48,7 +51,7 @@ _ARGTYPES = {
     "ldpc_fused_flooding_occupancy": [_I] * 10,
     # csrc/qc_cn.cu
     "ldpc_qc_cn": [_P] * 5 + [_I, _P, _P] + [_I] * 11 + [_P],
-    "ldpc_qc_cn_occupancy": [_I] * 2,
+    "ldpc_qc_cn_occupancy": [_I] * 4,
     # csrc/qc_vn.cu
     "ldpc_qc_vn": [_P] * 6 + [_I, _P, _P] + [_I] * 11 + [_P],
     "ldpc_qc_vn_occupancy": [_I] * 3,

@@ -12,7 +12,9 @@ Counterparts of ``ldpc_tpu/decode/pallas_fused.py``:
   ``csrc/fused_layered.cu``; plain version :func:`_fused_layered_plain`).
   A per-block c2v memory and per-column sums; row by row (a layer per base
   row) it forms fresh v2c messages from the current sums, runs the check
-  update and folds the new c2v back.
+  update and folds the new c2v back. The kernel keeps the c2v memory
+  compressed per check, on chip where it fits and otherwise in a
+  per-frame device scratch.
 
 Both have the check-at-the-end contract: the returned posterior is
 iteration T's, ``success`` is its syndrome (K3), ``iterations`` is T for
@@ -176,14 +178,22 @@ def _launch(flooding: bool, llr, tabs, qc: QCGraph, spec: VariantSpec,
     q_mode = qdq_mode(spec.qparams, spec.q_levels, closed)
     v_mode = qdq_mode(spec.v2c_qparams, spec.v2c_levels, closed)
     lib = load_library()
-    # flooding keeps the LLRs, the column sums and the compressed check
-    # state on chip (its layout is the library's); layered keeps LLRs +
-    # column sums (its c2v memory is a global scratch)
-    smem = (lib.ldpc_fused_flooding_smem(
-        qc.nb, qc.mb, qc.num_blocks, L, is_bf16, _QMODES[q_mode],
-        spec.q_levels, _QMODES[v_mode], spec.v2c_levels) if flooding
-        else 2 * n * llr.element_size())
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    modes = (_QMODES[q_mode], spec.q_levels, _QMODES[v_mode], spec.v2c_levels)
+    # both keep the LLRs, the column sums and a compressed check state on
+    # chip (the layout is the library's); where layered's check state does
+    # not fit, it goes to a per-frame scratch in device memory
+    state_bytes = 0
+    if flooding:
+        smem = lib.ldpc_fused_flooding_smem(qc.nb, qc.mb, qc.num_blocks, L,
+                                            is_bf16, *modes)
+    else:
+        dcmax = max(len(r) for r in qc.row_blocks)
+        sizes = (qc.nb, qc.mb, qc.num_blocks, L, dcmax, is_bf16, *modes)
+        smem = lib.ldpc_fused_layered_smem(*sizes, 1)
+        if smem > limit:
+            smem = lib.ldpc_fused_layered_smem(*sizes, 0)
+            state_bytes = lib.ldpc_fused_layered_state_bytes(*sizes)
     if smem > limit:
         raise ValueError(f"kernel needs {smem} B of shared memory per frame, "
                          f"the card allows {limit} B")
@@ -199,23 +209,26 @@ def _launch(flooding: bool, llr, tabs, qc: QCGraph, spec: VariantSpec,
     tables = [ptr(tabs["beta"]), ptr(tabs["alpha"]),
               ptr(tabs["thr"]), tabs["thr"].shape[1], ptr(tabs["qp"]),
               ptr(tabs["vthr"]), tabs["vthr"].shape[1], ptr(tabs["vqp"])]
-    sizes = [B, qc.nb, qc.mb, qc.num_blocks, L, T, is_bf16, _KINDS[spec.kind],
-             int(spec.alpha_in_cn), _QMODES[q_mode], spec.q_levels,
-             int(with_vqdq), _QMODES[v_mode], spec.v2c_levels,
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)]
+    variant = [_KINDS[spec.kind], int(spec.alpha_in_cn), _QMODES[q_mode],
+               spec.q_levels, int(with_vqdq), _QMODES[v_mode],
+               spec.v2c_levels,
+               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)]
     with torch.cuda.device(dev):  # the launch goes to the current device
         if flooding:
             err = lib.ldpc_fused_flooding(
                 ptr(llr), ptr(post), ptr(bits), ptr(ok), *tables,
                 *[ptr(g[k]) for k in ("row_ptr", "col_ptr", "col_blocks",
-                                      "block_col", "block_shift")], *sizes)
+                                      "block_col", "block_shift")],
+                B, qc.nb, qc.mb, qc.num_blocks, L, T, is_bf16, *variant)
         else:
-            cmem = torch.empty((B, qc.num_blocks, L), dtype=llr.dtype,
-                               device=dev)
+            state = (torch.empty((B, state_bytes), dtype=torch.uint8,
+                                 device=dev) if state_bytes else None)
             err = lib.ldpc_fused_layered(
-                ptr(llr), ptr(post), ptr(bits), ptr(ok), ptr(cmem), *tables,
+                ptr(llr), ptr(post), ptr(bits), ptr(ok), ptr(state), *tables,
                 *[ptr(g[k]) for k in ("row_ptr", "block_col",
-                                      "block_shift")], *sizes)
+                                      "block_shift")],
+                B, qc.nb, qc.mb, qc.num_blocks, L, T, dcmax, is_bf16,
+                *variant)
     name = "flooding" if flooding else "layered"
     if err != 0:
         raise RuntimeError(f"fused {name} kernel launch failed: CUDA error "

@@ -15,13 +15,19 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ldpc_tpu_torch.decode.variants import resolve_device
+
 __all__ = ["weights_from_numpy"]
 
 
-def weights_from_numpy(weights, device=None) -> Dict[str, Optional[torch.Tensor]]:
+def weights_from_numpy(weights, device="cuda"
+                       ) -> Dict[str, Optional[torch.Tensor]]:
     """``{"beta": array | None, "alpha": array | None}`` (as
     ``np.asarray(jax_decoder.weights[k])`` yields them) -> the port's dict
-    of float32 tensors on ``device`` (None entries stay None)."""
+    of float32 tensors on ``device`` (None entries stay None). The default
+    is the card, as for ``make_decoder``; without one this raises unless
+    ``device="cpu"`` is passed."""
+    device = resolve_device(device)
     return {k: (None if v is None else
                 torch.as_tensor(np.asarray(v, dtype=np.float32),
                                 device=device))

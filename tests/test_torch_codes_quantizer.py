@@ -107,9 +107,18 @@ def test_general_layers_and_constructors_equal(test_code):
 
 def test_weights_from_numpy_roundtrip():
     w = {"beta": np.arange(6, dtype=np.float64).reshape(2, 3), "alpha": None}
-    t = lt.weights_from_numpy(w)
+    t = lt.weights_from_numpy(w, device="cpu")
     assert t["alpha"] is None and t["beta"].dtype == torch.float32
+    assert t["beta"].device == torch.device("cpu")
     np.testing.assert_array_equal(t["beta"].numpy(), w["beta"])
+
+
+def test_weights_from_numpy_defaults_to_the_card(monkeypatch):
+    """Like make_decoder, the default device is the card: without one the
+    call raises instead of leaving the weights on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lt.weights_from_numpy({"beta": np.ones((2, 3)), "alpha": None})
 
 
 def _bits_equal(a, b):

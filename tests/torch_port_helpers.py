@@ -57,7 +57,7 @@ def decoder_pair(base, lift, T, jax_options=None, torch_options=None, **kw):
         qc_options=torch_options, device="cpu", **kw)
     tdec = tdec.replace_weights(lt.weights_from_numpy(
         {k: (None if v is None else np.array(v))
-         for k, v in jdec.weights.items()}))
+         for k, v in jdec.weights.items()}, device="cpu"))
     return jdec, tdec
 
 

@@ -65,9 +65,11 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("name", list(KINDS))
 def test_kernels_match_plain(card, name, dtype, B):
     """Every row through K5 and every column through K6 at the first and
-    the last iteration: B=160 (a partial thread block; 8-byte accesses in
-    K6) and B=150 (in bf16 not a multiple of K6's 4 frames per thread), with
-    NaN, +-0 and ties among K5's and K6's inputs."""
+    the last iteration: B=160 (a partial thread block; 8-byte accesses)
+    and B=150 (in bf16 not a multiple of the kernels' 4 frames per thread:
+    frame by frame), with NaN, +-0 and ties among K5's and K6's inputs;
+    irregular rows, which in the trained kinds do not share (beta,
+    alpha)."""
     dec = _decoder(**KINDS[name])
     qc, spec = dec.qc, dec.spec
     gen = torch.Generator(device=card).manual_seed(2)
@@ -156,7 +158,8 @@ def test_occupancy_entry_points(card):
 
     lib = load_library()
     for bf16 in (0, 1):
-        assert lib.ldpc_qc_cn_occupancy(37, bf16) >= 1
+        assert lib.ldpc_qc_cn_occupancy(37, bf16, 4, 4) >= 1
+        assert lib.ldpc_qc_cn_occupancy(70, bf16, 0, 0) >= 1
         assert lib.ldpc_qc_vn_occupancy(5, 128, bf16) >= 1
         assert lib.ldpc_qc_vn_occupancy(11, 128, bf16) >= 1
 
@@ -203,3 +206,79 @@ def test_steady_state_call_copies_nothing_from_host(card):
         assert any(kernel in n for n in names), \
             "the profiler saw no kernel; it cannot show copies either"
     assert not [n for n in names if "HtoD" in n]
+
+
+def _row_outputs(dec, v2c, weights, t):
+    """Every row of ``dec`` through K5 and through its plain version at t
+    -> (kernel's c2v, plain c2v)."""
+    qc, spec = dec.qc, dec.spec
+    tabs = engine._tables(weights, spec, dec.max_iterations, qc.num_blocks,
+                          v2c.device)
+    got, want = torch.zeros_like(v2c), torch.zeros_like(v2c)
+    for i in range(qc.mb):
+        qc_rowcol.cn_row(v2c, got, tabs, qc, spec, i, t)
+        qc_rowcol._cn_row_plain(v2c, want, tabs, qc, spec, i, t)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _messages(gen, shape, dtype, card):
+    v2c = torch.round(2.0 * torch.randn(shape, generator=gen, device=card)
+                      ) / 2.0                  # ties on a 0.5 grid
+    v2c[0, 1, :3] = float("nan")
+    v2c[1, 0, :7] = -0.0
+    return v2c.to(dtype)
+
+
+@pytest.mark.parametrize("B", [160, 150], ids=["B160", "B150"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["nms_t2", "oms_t2", "wrcq_t2", "orcq_t2"])
+def test_shared_and_per_block_rows_match_plain(card, name, dtype, B):
+    """K5 on rows whose blocks share (beta, alpha) (four c2v per check,
+    one picked per edge) and rows that do not (the transform per edge):
+    alpha is made one value at even iterations, so the same rows take
+    both paths; bit for bit at B=160 and B=150."""
+    dec = _decoder(**KINDS[name])
+    alt = {k: (None if v is None else v.clone())
+           for k, v in dec.weights.items()}
+    alt["alpha"][::2] = alt["alpha"][::2, :1]
+    gen = torch.Generator(device=card).manual_seed(12)
+    v2c = _messages(gen, (dec.qc.num_blocks, 16, B), dtype, card)
+    for t in (0, 1):
+        _close(*_row_outputs(dec, v2c, alt, t), dtype)
+
+
+@pytest.mark.parametrize("B", [96, 37], ids=["B96", "B37"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_row_matches_plain(card, dtype, B):
+    """Rows of degree 70 and 66 (above the 64 sign bits a thread keeps in
+    a register: the generic instance reads each message again for its
+    sign), OMS-RCQ with trained weights, bit for bit."""
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 8, size=(2, 70))
+    base[1, :4] = -1
+    code = lt.create_qc_code(base, lift=8, max_iterations=T)
+    dec = lt.make_decoder(code, max_iterations=T,
+                          qc=lt.build_qc_graph(base, 8), **KINDS["orcq_t2"])
+    assert [len(r) for r in dec.qc.row_blocks] == [70, 66]
+    gen = torch.Generator(device=card).manual_seed(13)
+    v2c = _messages(gen, (dec.qc.num_blocks, 8, B), dtype, card)
+    for t in (0, T - 1):
+        _close(*_row_outputs(dec, v2c, dec.weights, t), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_zoo_rows_match_plain(card, dtype):
+    """K5 on every row of the zoo decoder (dc = 37, every row sharing
+    (beta, alpha)) at t = 0 and T-1, at B = 4096 (8-byte accesses) and
+    B = 1029 (frame by frame), bit for bit."""
+    dec = lt.load_pretrained("worcq_bc3_qc9472")
+    gen = torch.Generator(device=card).manual_seed(14)
+    for B in (4096, 1029):
+        v2c = (3.0 * torch.randn((dec.qc.num_blocks, dec.qc.lift, B),
+                                 generator=gen, device=card)).to(dtype)
+        for t in (0, dec.max_iterations - 1):
+            _close(*_row_outputs(dec, v2c, dec.weights, t), dtype)

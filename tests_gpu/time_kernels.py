@@ -12,6 +12,8 @@ with the package's nvcc flags (``decode/_build.py``), then loaded in place
 of the package's library, so the same wrappers launch its kernels on the
 same inputs:
 
+- K5, one launch on the zoo decoder's row 0 (dc = 37, every block sharing
+  (beta, alpha)), B = 32768, bf16;
 - K6, one launch on the zoo decoder's column 0 (dv = 5, bv = 8 power-law
   routing), B = 32768, bf16;
 - K4, the zoo decoder (``worcq_bc3_qc9472``), bf16, lean, at B = 32768,
@@ -25,7 +27,7 @@ same inputs:
 The trees are timed in two turns, in the order given and then reversed
 (``a, b, b, a``), with CUDA events after a warm-up; each tree's outputs
 must equal the first tree's bit for bit. ``--sass`` also prints, for the
-K1, K4 and K6 kernels of each tree, the static SASS instruction counts
+K1, K4, K5 and K6 kernels of each tree, the static SASS instruction counts
 (``cuobjdump -sass``) by kind and the registers and spills ptxas reported.
 With ``--out``, one JSON object per measurement also goes to that file.
 Needs a CUDA card and nvcc.
@@ -33,6 +35,7 @@ Needs a CUDA card and nvcc.
 
 import argparse
 import collections
+import ctypes
 import json
 import re
 import subprocess
@@ -45,10 +48,15 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (sets the no-JAX guard, needs ROOT)
 import torch  # noqa: E402
 
-# the bf16 instances the timed calls run (K4's orcq instance, K6's dv = 5)
+# the bf16 instances the timed calls run (K1's rcq instance with the state
+# on chip, K4's and K5's orcq instances, K6's dv = 5), and those of older
+# trees without the kind as a template parameter
 KERNELS = ("fused_layered_kernelI13__nv_bfloat16E",
+           "fused_layered_kernelI13__nv_bfloat16Li2ELi768ELb1E",
            "fused_flooding_kernelI13__nv_bfloat16E",
            "fused_flooding_kernelI13__nv_bfloat16Li4E",
+           "qc_cn_kernelI13__nv_bfloat16E",
+           "qc_cn_kernelI13__nv_bfloat16Li4ELb1E",
            "qc_vn_kernelI13__nv_bfloat16E", "qc_vn_kernelI13__nv_bfloat16Li5E")
 OPS = ("MUFU", "CALL", "LDG", "LDS", "STS", "BAR", "FRND", "BRA", "FSETP",
        "FADD", "FMUL", "IMAD")
@@ -70,6 +78,28 @@ def sass_stats(so: Path):
     return stats
 
 
+def adapt_old_layered(lib):
+    """Give a library of older sources (K1 with a global c2v scratch
+    [B, NB, L] in the storage type, before the compressed check state) the
+    current K1 entry points: the wrapper's call is passed on with a
+    scratch it allocates, as the wrapper of those sources did."""
+    old = lib.ldpc_fused_layered
+    P, I = ctypes.c_void_p, ctypes.c_int
+    old.argtypes = [P] * 8 + [I, P, P, I, P, P, P, P] + [I] * 14 + [P]
+
+    def call(*args):
+        head, (B, nb, mb, NB, L, T, _dcmax, is_bf16), rest = \
+            args[:16], args[16:24], args[24:]
+        cmem = torch.empty((B, NB * L * (2 if is_bf16 else 4)),
+                           dtype=torch.uint8, device="cuda")
+        return old(*head[:4], ctypes.c_void_p(cmem.data_ptr()), *head[5:],
+                   B, nb, mb, NB, L, T, is_bf16, *rest)
+
+    lib.ldpc_fused_layered = call
+    lib.ldpc_fused_layered_smem = lambda *sizes: 0  # sized at launch
+    lib.ldpc_fused_layered_state_bytes = lambda *sizes: 0
+
+
 class Inputs:
     """The inputs of every timed call, made once from seeded generators."""
 
@@ -82,6 +112,7 @@ class Inputs:
         self.rc = chip_smoke.RowColState(
             self.zdec, lt.awgn_llr(gen, torch.zeros((32768, n), device=dev),
                                    6.25), torch.bfloat16)
+        self.o5 = torch.zeros_like(self.rc.v2c)
         self.o6 = (torch.empty_like(self.rc.v2c),
                    torch.empty_like(self.rc.llr_T))
         self.x4 = lt.awgn_llr(gen, torch.zeros((32768, n), device=dev),
@@ -96,6 +127,10 @@ class Inputs:
 
     def calls(self):
         """(name, reps, fn -> tensors to compare)."""
+        def k5():  # writes row 0's blocks; the rest stays zero
+            self.rc.cn(0, 0, False, self.o5)
+            return (self.o5,)
+
         def k6():
             self.rc.vn(0, 0, False, self.o6)
             return self.o6
@@ -116,7 +151,8 @@ class Inputs:
                 dtype=torch.bfloat16, batch_tile=128)
             return out.bits, out.success
 
-        return [("K6 col 0 B=32768", 20, k6),
+        return [("K5 row 0 B=32768", 20, k5),
+                ("K6 col 0 B=32768", 20, k6),
                 ("K4 B=32768 T=6", 5, k4(32768, 6)),
                 ("K4 B=8192 T=10", 5, k4(8192, 10)),
                 ("K1 B=32768 T=3", 5, k1(32768, 3)),
@@ -149,6 +185,8 @@ def main():
             # an older K4 sizes its shared memory itself, at launch; the
             # wrapper's check before the launch has nothing to ask
             libs[name].ldpc_fused_flooding_smem = lambda *sizes: 0
+        if not hasattr(libs[name], "ldpc_fused_layered_smem"):
+            adapt_old_layered(libs[name])
         if args.sass:
             regs = chip_smoke.ptxas_stats(so.with_suffix(".log"))
             for fn, st in sass_stats(so).items():
