@@ -50,7 +50,20 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 9. non-fused compaction: one 32768-frame wave at 6.5 dB of the zoo
    decoder with ``check_every=5`` through ``LDPCSimulator``
    (``early_exit_iters=5``, ``stage1_fused``, survivor budget 16384): it
-   must be compacted, launch K4 once, and count 0-20 frame errors.
+   must be compacted, launch K4 once, and count 0-20 frame errors;
+10. general, layered and bucketed engines: PBRL (3096, 1032) with RCQ
+   bc=3, bv=8, T=10 at 1.2 dB (``experiments/throughput_matrix.py``) on
+   four routes (general flooding f32, bucketed f32 and bf16, general
+   layered f32): each on the card equal to the CPU on 256 numpy frames
+   (bits, success, iterations; posteriors bit for bit), general equal to
+   bucketed in f32 and bf16 within 1% of bits and 0.5% of successes of
+   f32 at B=2048, each timed at B=2048 and 32768 with its CUDA kernel
+   launches per decode (torch.profiler); the ten decoders of
+   ``create_test_decoders`` at B=2048, their first 64 frames equal to the
+   CPU's; the bucketed bf16 decoder through ``LDPCSimulator`` (32768-frame
+   compacting waves, ``early_exit_iters=5``, ``check_every=5``) with its
+   FER in a binomial band around the JAX package's; no K1, K4, K5 or K6
+   launch in the phase.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -133,6 +146,33 @@ NF_ERRORS = (0, 20)
 # Their frame errors must also pass a paired (McNemar) test: the frames
 # only one route fails split evenly
 RC_AGREE = (0.999, 0.98)
+# phase 10: the general, layered and bucketed engines at the full width of
+# PBRL (3096, 1032), the configuration of experiments/throughput_matrix.py
+# (RCQ bc=3, bv=8, T=10, 1.2 dB, B=2048), each route on the card against
+# the CPU (256 numpy frames), timed at B=2048 and 32768, the reference's
+# ten comparison decoders, and the bucketed bf16 decoder through the
+# simulator against the JAX package's FER (experiments/
+# pbrl_fer_reference.py, same decoder, ldpc_tpu.sim on the CPU)
+PB_KW = dict(kind="rcq", bc=3, bv=8,
+             quantizer_params=((2.0, 1.3), (4.0, 1.3), (6.0, 1.3)),
+             v2c_quantizer_params=((4.0, 1.0), (8.0, 1.0), (12.0, 1.0)),
+             max_iterations=10)
+PB_T, PB_SNR, PB_B, PB_BIG, PB_CPU = 10, 1.2, 2048, 32768, 256
+PB_ROUTES = {
+    "general": (dict(), {}),
+    "bucketed_f32": (dict(bucketed=True), {}),
+    "bucketed_bf16": (dict(bucketed=True), {"dtype": torch.bfloat16}),
+    "layered": (dict(layered=True), {}),
+}
+# At 1.2 dB this decoder leaves (almost) every frame unconverged after 5
+# iterations (JAX: 2 of 65536 converged there), so the survivor budget is
+# the whole wave: the wave is compacted, and stage 2 decodes every frame
+PB_SIM = dict(snr_range=(PB_SNR, PB_SNR), snr_step=0.25, max_frames=65536,
+              max_errors=10 ** 9, min_frames=0, wave_size=32768,
+              early_exit_iters=5, survivor_budget=32768, seed=0,
+              save_results=False)
+# experiments/pbrl_fer_reference.py --frames 65536 (ldpc_tpu.sim, XLA:CPU)
+PB_REF_FER, PB_REF_FRAMES = 54307 / 65536, 65536
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -677,6 +717,144 @@ def phase9(dev, card):
         raise AssertionError(f"{errors} frame errors at 6.5 dB")
 
 
+def pbrl_decoder(code, dev, route, **opts):
+    """Phase 10's decoder on ``route`` (``PB_ROUTES``), extra qc_options
+    ``opts``."""
+    import ldpc_tpu_torch as lt
+    args, base_opts = PB_ROUTES[route]
+    return lt.make_decoder(code, device=dev, qc_options={**base_opts, **opts}
+                           or None, **PB_KW, **args)
+
+
+def numpy_llr(B, n, snr_db, seed):
+    """BPSK all-zero codewords over AWGN as float32 LLRs made with numpy
+    (the CPU tests' channel_llr)."""
+    rng = np.random.default_rng(seed)
+    sigma2 = 10.0 ** (-snr_db / 10.0)
+    r = 1.0 + np.sqrt(sigma2) * rng.standard_normal((B, n))
+    return torch.from_numpy((2.0 * r / sigma2).astype(np.float32))
+
+
+def cuda_launches(fn):
+    """CUDA kernels launched by one call of ``fn``, from torch.profiler, or
+    None where the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and
+               not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels) or None
+
+
+def hard_equal(name, out, ref, frames=None):
+    """Bits, success and iterations of ``out`` (its first ``frames``)
+    equal ``ref``'s."""
+    for k in ("bits", "success", "iterations"):
+        if not torch.equal(getattr(out, k)[:frames].cpu(),
+                           getattr(ref, k).cpu()):
+            raise AssertionError(f"{name}: {k} differ")
+
+
+def phase10(dev, card):
+    """The general, layered and bucketed engines on PBRL (3096, 1032)."""
+    import ldpc_tpu_torch as lt
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    code = lt.create_pbrl_like_code(k=1032, rate=1 / 3,
+                                    max_iterations=PB_T)
+    g = lt.build_graph(code)
+    print(f"[10 general/bucketed engines] PBRL ({code.n}, {code.k}): m="
+          f"{g.m}, E={g.num_edges}, check degrees {g.unique_dc[0]}-"
+          f"{g.unique_dc[-1]}, variable degrees {g.unique_dv[0]}-"
+          f"{g.unique_dv[-1]}; RCQ bc=3 bv=8, T={PB_T}, {PB_SNR} dB")
+    decs = {r: pbrl_decoder(code, dev, r) for r in PB_ROUTES}
+
+    # each route on the card against the same route on the CPU
+    x = numpy_llr(PB_CPU, code.n, PB_SNR, seed=10)
+    for r, d in decs.items():
+        out, ref = d(x.to(dev)), d(x)
+        hard_equal(r, out, ref)
+        err = same_bits(f"{r} posterior", out.posterior.cpu(), ref.posterior)
+        print(f"  card vs CPU {r:14s} B={PB_CPU}: bits, success, iterations "
+              f"equal, posterior bit for bit (max|d| {err:g}), success "
+              f"{ref.success.float().mean().item():.4f}")
+
+    # general against bucketed (f32), bf16 against f32 (bucketed)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    llr = lt.awgn_llr(gen, torch.zeros((PB_B, code.n), device=dev), PB_SNR)
+    outs = {r: d(llr) for r, d in decs.items()}
+    gen_, b32, b16 = (outs[k] for k in ("general", "bucketed_f32",
+                                        "bucketed_bf16"))
+    hard_equal("general vs bucketed", gen_, b32)
+    agree = (b16.bits == b32.bits).float().mean().item()
+    d_ok = abs(int(b16.success.sum()) - int(b32.success.sum()))
+    print(f"  B={PB_B} on the card: general == bucketed f32 (bits, success, "
+          f"iterations); bucketed bf16 vs f32: bits agree {agree:.6f}, "
+          f"successes {int(b16.success.sum())} vs {int(b32.success.sum())}; "
+          f"layered success {outs['layered'].success.float().mean():.4f}")
+    if agree < 0.99 or d_ok > 0.005 * PB_B:
+        raise AssertionError("bucketed bf16 strays from f32")
+    del outs, gen_, b32, b16
+
+    # times at B=2048 and B=32768 (CUDA events, after a warm-up), and the
+    # kernels one decode launches
+    big = lt.awgn_llr(gen, torch.zeros((PB_BIG, code.n), device=dev), PB_SNR)
+    for r, d in decs.items():
+        line = []
+        for B_, x_ in ((PB_B, llr), (PB_BIG, big)):
+            ms = time_ms(lambda: d(x_), 3 if B_ == PB_B else 2)
+            line.append(f"B={B_} {ms:.2f} ms, {B_ / ms * 1e3:.1f} cw/s")
+        n_k = cuda_launches(lambda: d(llr))
+        print(f"  time {r:14s}: {'; '.join(line)}; "
+              f"{n_k if n_k else 'not measured'} CUDA kernel launches per "
+              f"decode (torch.profiler)  [{card}]")
+    del big
+    torch.cuda.empty_cache()
+
+    # the reference's comparison set: each decoder on the card, its first
+    # 64 frames against the CPU
+    for name, d in lt.create_test_decoders(code, max_iterations=PB_T,
+                                           device=dev).items():
+        out = d(llr)
+        ref = d(llr[:64].cpu())
+        hard_equal(name, out, ref, 64)
+        diff = (out.posterior[:64].cpu() - ref.posterior).abs()
+        print(f"  {name:14s} B={PB_B}: FER {out.bits.any(1).float().mean():.4f}"
+              f", first 64 frames = CPU (posterior max|d| "
+              f"{diff.max().item():g})")
+
+    # the FER of the bucketed bf16 decoder through the simulator
+    dec = pbrl_decoder(code, dev, "bucketed_bf16", check_every=5)
+    sim = lt.LDPCSimulator(lt.SimulationConfig(**PB_SIM))
+    t0 = time.perf_counter()
+    res = sim.simulate_decoder(dec, "pbrl_bucketed_bf16", verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    kinds = sim.wave_kinds["pbrl_bucketed_bf16"][0]
+    fer, frames = res.frame_error_rates[0], res.total_frames[0]
+    p, n_ref = PB_REF_FER, PB_REF_FRAMES
+    half = 4.0 * (p * (1 - p) * (1 / frames + 1 / n_ref)) ** 0.5
+    print(f"  simulator {PB_SNR} dB, bucketed bf16, check_every=5, "
+          f"early_exit_iters=5: {frames} frames, {res.total_errors[0]} "
+          f"frame errors, FER {fer:.6g} (JAX {p:.6g} of {n_ref}; band "
+          f"{p - half:.6g}-{p + half:.6g}), waves {kinds}, "
+          f"{frames / secs:.1f} codewords/s  [{card}]")
+    if not kinds.get("compacted"):
+        raise AssertionError(f"no compacted wave: {kinds}")
+    if abs(fer - p) > half:
+        raise AssertionError(f"FER {fer} off the JAX package's {p}")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 10 launched a fused or row/column "
+                             f"kernel: {counts}")
+    print(f"  K1/K4/K5/K6 launches in phase 10: {counts}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
@@ -961,6 +1139,8 @@ def main():
     rc_counts = phase8(zdec, dev, card)
     torch.cuda.empty_cache()
     phase9(dev, card)
+    torch.cuda.empty_cache()
+    phase10(dev, card)
 
     print(card)
     k4 = k4_times[SIM_WAVE]

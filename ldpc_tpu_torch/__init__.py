@@ -4,7 +4,8 @@ It imports torch and numpy and never jax; module names follow the JAX
 package so each counterpart is easy to find. Ported so far: the code model,
 the RCQ quantizers, the decoder registry, the AWGN channel, the fused
 layered and flooding decodes (hand-written CUDA kernels, each with a plain
-PyTorch version for CPU tensors), the QC engines as torch ops, the
+PyTorch version for CPU tensors), the QC engines and the general,
+layered and degree-bucketed engines for any code as torch ops, the
 flooding QC decode through one kernel per base row and column, the
 two-checkpoint early exit, the pretrained-decoder zoo and the Monte-Carlo
 simulator. Decoders and simulations run on the card unless given
@@ -42,11 +43,16 @@ from ldpc_tpu_torch.quantizer import (
     uniform_qdq,
 )
 from ldpc_tpu_torch.decode import (
+    BucketedGraph,
     DecodeResult,
     Decoder,
     QCGraph,
     basic_min_sum,
+    bucketed_decode_batch,
+    build_bucketed_graph,
     build_qc_graph,
+    decode_batch,
+    decode_batch_layered,
     make_decoder,
     make_two_checkpoint_decoder,
     neural_2d_min_sum,

@@ -155,6 +155,25 @@ struct Const {
   static constexpr int value = N;
 };
 
+// the fused kernels' threads per block for a lift of L: one per check or
+// variable of a block up to 1024, else 1024 threads that each take
+// ceil(L / 1024) of them (the WIDE instances)
+__host__ __device__ __forceinline__ int block_threads(int L) {
+  return L <= 1024 ? L : 1024;
+}
+
+// f(u) for each check or variable u of a block that this thread owns: u =
+// threadIdx.x where the block has L threads, else threadIdx.x,
+// threadIdx.x + blockDim.x, ... below L (WIDE)
+template <bool WIDE, typename F>
+__device__ __forceinline__ void each_unit(int L, F&& f) {
+  if constexpr (WIDE) {
+    for (int u = threadIdx.x; u < L; u += blockDim.x) f(u);
+  } else {
+    f((int)threadIdx.x);
+  }
+}
+
 // a quantizer of one iteration as a kernel applies it: its constants and
 // its table (in shared memory)
 struct Quant {

@@ -52,6 +52,12 @@
 // the compressed state) and the shared-memory loads and address
 // arithmetic around it, not by bandwidth.
 //
+// Lifts above 1024 (more checks per base row than a block has threads)
+// take the WIDE instances: 1024 threads, each running the per-check and
+// per-variable work of ceil(L / 1024) units in turn (each_unit,
+// common.cuh). No phase has an ordering inside it, so the result is the
+// same; the instances for L <= 1024 are compiled as before.
+//
 // Numerics: see common.cuh. The variable-node sums run in S, in the
 // column's block order, each add rounded to S, as the TPU kernel does.
 
@@ -150,9 +156,10 @@ __host__ __device__ Layout layout(int nb, int mb, int NB, int L, int q_mode,
   return y;
 }
 
-// MAXT: the most threads (lift L) the instance takes; 768 lets ptxas use 80
-// registers a thread (3 CTAs of 256 threads per SM), 1024 only 64
-template <typename S, int KIND, int MAXT>
+// MAXT: the most threads the instance takes; 768 lets ptxas use 80
+// registers a thread (3 CTAs of 256 threads per SM), 1024 only 64. WIDE:
+// L > 1024, each thread takes several checks and variables of a block
+template <typename S, int KIND, int MAXT, bool WIDE>
 __global__ void __launch_bounds__(MAXT) fused_flooding_kernel(FloodParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Variant& var = p.var;
@@ -175,15 +182,16 @@ __global__ void __launch_bounds__(MAXT) fused_flooding_kernel(FloodParams p) {
 
   const int L = p.L, NB = p.NB, ML = p.mb * L;
   const int last = (y.nw - 1) * ML;  // the last sign word of check 0
-  const int u = threadIdx.x;
+  // the block's threads stride the tables' staging loops
+  const int tid = threadIdx.x, nt = WIDE ? (int)blockDim.x : L;
   const size_t f = blockIdx.x;
   const size_t n = (size_t)p.nb * L;
   const S* llr_g = static_cast<const S*>(p.llr) + f * n;
   const int aic = var.alpha_in_cn, vq = p.with_vqdq;
 
-  for (int i = u; i <= p.mb; i += L) rptr[i] = p.row_ptr[i];
-  for (int j = u; j <= p.nb; j += L) cptr[j] = p.col_ptr[j];
-  for (int e = u; e < NB; e += L) {
+  for (int i = tid; i <= p.mb; i += nt) rptr[i] = p.row_ptr[i];
+  for (int j = tid; j <= p.nb; j += nt) cptr[j] = p.col_ptr[j];
+  for (int e = tid; e < NB; e += nt) {
     const int b = p.col_blocks[e];
     int i = 0;
     while (p.row_ptr[i + 1] <= b) ++i;
@@ -192,7 +200,9 @@ __global__ void __launch_bounds__(MAXT) fused_flooding_kernel(FloodParams p) {
                          k | (p.block_shift[b] << 16));
     bcs[e] = make_int2(p.block_col[e] * L, p.block_shift[e]);
   }
-  for (int j = 0; j < p.nb; ++j) vars[2 * (j * L + u)] = llr_g[j * L + u];
+  each_unit<WIDE>(L, [&](int u) {
+    for (int j = 0; j < p.nb; ++j) vars[2 * (j * L + u)] = llr_g[j * L + u];
+  });
 
   const float kInf = __int_as_float(0x7f800000);
   for (int t = 0; t < p.T; ++t) {
@@ -203,19 +213,19 @@ __global__ void __launch_bounds__(MAXT) fused_flooding_kernel(FloodParams p) {
       float* tc = tabs + cur * y.tab_w;
       const QConst q = qconst(t, var.q_mode, var.q_levels, var.qp);
       const QConst w = qconst(t, p.v_mode, p.v_levels, p.vqp);
-      if (u == 0) {
+      if (tid == 0) {
         qcs[2 * cur] = q;
         qcs[2 * cur + 1] = w;
       }
-      for (int b = u; b < NB; b += L) {
+      for (int b = tid; b < NB; b += nt) {
         tc[2 * b] = p.beta[t * NB + b];
         tc[2 * b + 1] = p.alpha[t * NB + b];
       }
-      for (int i = u; i < y.qlen; i += L)
+      for (int i = tid; i < y.qlen; i += nt)
         tc[2 * NB + i] = qtable_entry(q, i, t, var.thr, var.thr_w);
-      for (int i = u; i < y.vlen; i += L)
+      for (int i = tid; i < y.vlen; i += nt)
         tc[2 * NB + y.qlen + i] = qtable_entry(w, i, t, p.vthr, p.vthr_w);
-      for (int i = u; i < p.mb; i += L) {
+      for (int i = tid; i < p.mb; i += nt) {
         const float* bt = p.beta + t * NB;
         const float* at = p.alpha + t * NB;
         const int b0 = p.row_ptr[i];
@@ -229,7 +239,7 @@ __global__ void __launch_bounds__(MAXT) fused_flooding_kernel(FloodParams p) {
     __syncthreads();  // t = 0: the graph tables and LLRs; else the VN phase
 
     // ---- check-node update: thread u = check u of every base row
-    {
+    each_unit<WIDE>(L, [&](int u) {
       const float* tp = tabs + prv * y.tab_w;
       const float* tc = tabs + cur * y.tab_w;
       const Quant cq{qcs[2 * prv], tp + 2 * NB};  // tables of t - 1
@@ -318,15 +328,14 @@ __global__ void __launch_bounds__(MAXT) fused_flooding_kernel(FloodParams p) {
         const uint32_t bits = (dc > 32 * (y.nw - 1)) ? *lw & 0x3fffu : 0u;
         *lw = bits | (meta << kMetaShift);
       }
-    }
+    });
     __syncthreads();
 
     // ---- variable-node update: thread v = variable v of every base column
-    {
+    each_unit<WIDE>(L, [&](int v) {
       const float* tc = tabs + cur * y.tab_w;
       const Quant cq{qcs[2 * cur], tc + 2 * NB};
       const Quant vqf{qcs[2 * cur + 1], tc + 2 * NB + y.qlen};
-      const int v = u;
       for (int j = 0; j < p.nb; ++j) {
         const int c0 = cptr[j];
         const int dv = cptr[j + 1] - c0;
@@ -360,35 +369,36 @@ __global__ void __launch_bounds__(MAXT) fused_flooding_kernel(FloodParams p) {
           st(var_v, post);
         }
       }
-    }
+    });
     __syncthreads();
   }
   if (p.T == 0) __syncthreads();  // the LLRs are the posterior
 
-  // output: the stored posterior, or its hard decisions
-  for (int j = 0; j < p.nb; ++j) {
-    const int idx = j * L + u;
-    const float stored = ld(&vars[2 * idx]);
-    if (p.post != nullptr)
-      st(static_cast<S*>(p.post) + f * n + idx, stored);
-    else
-      p.bits[f * n + idx] = (int8_t)(stored < 0.0f);
-  }
-
-  // K3: syndrome of the stored posterior, per base row
+  // output: the stored posterior, or its hard decisions; K3: syndrome of
+  // the stored posterior, per base row
   int fail = 0;
-  for (int i = 0; i < p.mb; ++i) {
-    int parity = 0;
-    for (int b = rptr[i]; b < rptr[i + 1]; ++b) {
-      const int2 cs = bcs[b];
-      int v = u + cs.y;
-      v = (v >= L) ? v - L : v;
-      parity ^= (int)(ld(&vars[2 * (cs.x + v)]) < 0.0f);
+  each_unit<WIDE>(L, [&](int u) {
+    for (int j = 0; j < p.nb; ++j) {
+      const int idx = j * L + u;
+      const float stored = ld(&vars[2 * idx]);
+      if (p.post != nullptr)
+        st(static_cast<S*>(p.post) + f * n + idx, stored);
+      else
+        p.bits[f * n + idx] = (int8_t)(stored < 0.0f);
     }
-    fail |= parity;
-  }
+    for (int i = 0; i < p.mb; ++i) {
+      int parity = 0;
+      for (int b = rptr[i]; b < rptr[i + 1]; ++b) {
+        const int2 cs = bcs[b];
+        int v = u + cs.y;
+        v = (v >= L) ? v - L : v;
+        parity ^= (int)(ld(&vars[2 * (cs.x + v)]) < 0.0f);
+      }
+      fail |= parity;
+    }
+  });
   const int any_fail = __syncthreads_or(fail);
-  if (u == 0) p.ok[f] = (uint8_t)(any_fail == 0);
+  if (tid == 0) p.ok[f] = (uint8_t)(any_fail == 0);
 }
 
 template <typename S>
@@ -398,22 +408,26 @@ size_t smem_bytes(const FloodParams& p) {
 }
 
 // the kernel instance of the variant's kind for MAXT threads
-template <typename S, int MAXT>
+template <typename S, int MAXT, bool WIDE>
 const void* instance(int kind) {
   switch (kind) {
-    case kNms: return (const void*)fused_flooding_kernel<S, kNms, MAXT>;
-    case kOms: return (const void*)fused_flooding_kernel<S, kOms, MAXT>;
-    case kRcq: return (const void*)fused_flooding_kernel<S, kRcq, MAXT>;
-    case kWrcq: return (const void*)fused_flooding_kernel<S, kWrcq, MAXT>;
-    default: return (const void*)fused_flooding_kernel<S, kOrcq, MAXT>;
+    case kNms: return (const void*)fused_flooding_kernel<S, kNms, MAXT, WIDE>;
+    case kOms: return (const void*)fused_flooding_kernel<S, kOms, MAXT, WIDE>;
+    case kRcq: return (const void*)fused_flooding_kernel<S, kRcq, MAXT, WIDE>;
+    case kWrcq:
+      return (const void*)fused_flooding_kernel<S, kWrcq, MAXT, WIDE>;
+    default: return (const void*)fused_flooding_kernel<S, kOrcq, MAXT, WIDE>;
   }
 }
 
-// the instance that launches L threads: the register cap of 768 threads
-// measured 6% faster than that of 1024 at the zoo's L = 256 (PERF.md)
+// the instance for a lift of L (block_threads(L) threads): the register cap
+// of 768 threads measured 6% faster than that of 1024 at the zoo's L = 256
+// (PERF.md)
 template <typename S>
 const void* kernel_for(int kind, int L) {
-  return (L <= 768) ? instance<S, 768>(kind) : instance<S, 1024>(kind);
+  if (L <= 768) return instance<S, 768, false>(kind);
+  return (L <= 1024) ? instance<S, 1024, false>(kind)
+                     : instance<S, 1024, true>(kind);
 }
 
 template <typename S>
@@ -424,10 +438,11 @@ cudaError_t launch(FloodParams p, int B, cudaStream_t stream) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&p};
-  return cudaLaunchKernel(fn, dim3(B), dim3(p.L), args, smem, stream);
+  return cudaLaunchKernel(fn, dim3(B), dim3(block_threads(p.L)), args, smem,
+                          stream);
 }
 
-// CTAs of the kernel resident on one SM at block size L, or -1
+// CTAs of the kernel resident on one SM at the lift's block size, or -1
 template <typename S>
 int occupancy(const FloodParams& p) {
   const size_t smem = smem_bytes<S>(p);
@@ -435,8 +450,8 @@ int occupancy(const FloodParams& p) {
   int blocks = -1;
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, p.L, smem) !=
-          cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fn, block_threads(p.L), smem) != cudaSuccess)
     return -1;
   return blocks;
 }
@@ -495,7 +510,7 @@ extern "C" int ldpc_fused_flooding_smem(int nb, int mb, int NB, int L,
   return (int)y.total;
 }
 
-// resident CTAs per SM of the kernel at block size L (-1 on a CUDA error)
+// resident CTAs per SM of the kernel for a lift of L (-1 on a CUDA error)
 extern "C" int ldpc_fused_flooding_occupancy(int nb, int mb, int NB, int L,
                                              int is_bf16, int kind,
                                              int q_mode, int q_levels,

@@ -35,7 +35,10 @@
 // on whether its c2v are picked or transformed (so the common loop carries
 // no inlined quantizer it skips) and unrolled by two, and lifts up to 768
 // take an instance capped at 80 registers a thread, larger ones one capped
-// at 64 (MAXT), as in K4.
+// at 64 (MAXT), as in K4. Lifts above 1024 take the WIDE instances: 1024
+// threads, each running checks u, u + 1024, ... of the row in turn
+// (each_unit, common.cuh); a row's checks touch distinct variables, so
+// the order within the row does not matter.
 //
 // What bounds it. At the bench width (5x37 base, L = 256, bf16) a CTA holds
 // 37,888 B of LLRs and column sums and 20,480 B of check state (8-byte
@@ -178,16 +181,18 @@ __host__ __device__ Layout layout(int nb, int mb, int NB, int L, int dcmax,
   return y;
 }
 
-// MAXT: the most threads (lift L) the instance takes (768: up to 80
-// registers a thread, 1024: 64); ONCHIP: the check state in shared memory
-template <typename S, int KIND, int MAXT, bool ONCHIP>
+// MAXT: the most threads the instance takes (768: up to 80 registers a
+// thread, 1024: 64); ONCHIP: the check state in shared memory; WIDE:
+// L > 1024, each thread takes several checks and variables of a block
+template <typename S, int KIND, int MAXT, bool ONCHIP, bool WIDE>
 __global__ void __launch_bounds__(MAXT) fused_layered_kernel(LayerParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Variant& var = p.var;
   const Layout y = layout<S>(p.nb, p.mb, p.NB, p.L, p.dcmax, var.q_mode,
                              var.q_levels, p.v_mode, p.v_levels, ONCHIP);
   const int L = p.L, NB = p.NB, ML = p.mb * L;
-  const int u = threadIdx.x;
+  // the block's threads stride the tables' staging loops
+  const int tid = threadIdx.x, nt = WIDE ? (int)blockDim.x : L;
   const size_t f = blockIdx.x;
   const size_t n = (size_t)p.nb * L;
   unsigned char* sbase =
@@ -207,18 +212,20 @@ __global__ void __launch_bounds__(MAXT) fused_layered_kernel(LayerParams p) {
   const S* llr_g = static_cast<const S*>(p.llr) + f * n;
   const int aic = var.alpha_in_cn;
 
-  for (int i = u; i <= p.mb; i += L) rptr[i] = p.row_ptr[i];
-  for (int b = u; b < NB; b += L)
+  for (int i = tid; i <= p.mb; i += nt) rptr[i] = p.row_ptr[i];
+  for (int b = tid; b < NB; b += nt)
     bcs[b] = make_int2(p.block_col[b] * L, p.block_shift[b]);
-  for (int j = 0; j < p.nb; ++j) {
-    vars[2 * (j * L + u)] = llr_g[j * L + u];
-    st(&vars[2 * (j * L + u) + 1], 0.0f);
-  }
+  each_unit<WIDE>(L, [&](int u) {
+    for (int j = 0; j < p.nb; ++j) {
+      vars[2 * (j * L + u)] = llr_g[j * L + u];
+      st(&vars[2 * (j * L + u) + 1], 0.0f);
+    }
+  });
   const int vq = p.with_vqdq && p.T > 0;
   if (vq) {  // the posterior's quantizer, of iteration T - 1
     const QConst q = qconst(p.T - 1, p.v_mode, p.v_levels, p.vqp);
-    if (u == 0) qcs[2] = q;
-    for (int i = u; i < y.vlen; i += L)
+    if (tid == 0) qcs[2] = q;
+    for (int i = tid; i < y.vlen; i += nt)
       vtab[i] = qtable_entry(q, i, p.T - 1, p.vthr, p.vthr_w);
   }
 
@@ -229,14 +236,14 @@ __global__ void __launch_bounds__(MAXT) fused_layered_kernel(LayerParams p) {
     {
       float* tc = tabs + cur * y.tab_w;
       const QConst q = qconst(t, var.q_mode, var.q_levels, var.qp);
-      if (u == 0) qcs[cur] = q;
-      for (int b = u; b < NB; b += L) {
+      if (tid == 0) qcs[cur] = q;
+      for (int b = tid; b < NB; b += nt) {
         tc[2 * b] = p.beta[t * NB + b];
         tc[2 * b + 1] = p.alpha[t * NB + b];
       }
-      for (int i = u; i < y.qlen; i += L)
+      for (int i = tid; i < y.qlen; i += nt)
         tc[2 * NB + i] = qtable_entry(q, i, t, var.thr, var.thr_w);
-      for (int i = u; i < p.mb; i += L) {
+      for (int i = tid; i < p.mb; i += nt) {
         const float* bt = p.beta + t * NB;
         const float* at = p.alpha + t * NB;
         const int b0 = p.row_ptr[i];
@@ -254,146 +261,148 @@ __global__ void __launch_bounds__(MAXT) fused_layered_kernel(LayerParams p) {
     const Quant cqp{qcs[prv], tabs + prv * y.tab_w + 2 * NB};  // of t - 1
     const Quant cqt{qcs[cur], tabs + cur * y.tab_w + 2 * NB};  // of t
     for (int i = 0; i < p.mb; ++i) {
-      const int b0 = rptr[i];
-      const int dc = rptr[i + 1] - b0;
-      const int ci = i * L + u;
-      Chk<S> old{};
-      uint32_t ometa = 0;
-      if (t > 0) {
-        old = chk[ci];
-        ometa = signs[last + ci] >> kMetaShift;
-      }
-      const int oargm = ometa & 0xffff, opar = (ometa >> 16) & 1;
-      const int ouni = ometa >> 17;
-      // where the row shares (beta, alpha) at t, every block's alpha is
-      // this one, bit for bit
-      const int un = uni[cur * p.mb + i];
-      const float arow = bac[b0].y;
-      // pass 1: the c2v stored at t - 1 leaves the column sum (ext), the
-      // fresh v2c from ext, the running (min1, min2, first argmin), the
-      // negative count and the sign bits. OLD: the c2v taken back is none
-      // (t = 0), picked from the four (1) or transformed from min1 or min2
-      // with the tables of t - 1 (2); a loop for each
-      float min1 = 0.0f, min2 = kInf;
-      int argm = 0, neg_cnt = 0;
-      const auto pass1 = [&](auto old_kind) {
-        constexpr int OLD = decltype(old_kind)::value;
-        const Slots<S> oslot(old);
-        for (int kw = 0; kw < dc; kw += 32) {
-          uint32_t* sw = signs + (kw >> 5) * ML + ci;
-          const uint32_t osigns = OLD ? *sw : 0u;
-          const auto v2c_at = [&](int k) {
-            const int b = b0 + k;
-            const int2 cs = bcs[b];
-            int v = u + cs.y;
-            v = (v >= L) ? v - L : v;
-            S* var_v = &vars[2 * (cs.x + v)];
-            float l, ext;
-            ld_pair(var_v, l, ext);
-            if constexpr (OLD != 0) {
-              const int j = oargm == k;
-              const int loo_neg = ((osigns >> (k & 31)) & 1) ^ opar;
-              float c2;
-              if constexpr (OLD == 1) {
-                c2 = oslot.pick(j, loo_neg);
-              } else {
-                const float2 ba = bap[b];
-                c2 = rnd<S>(c2v_kind<KIND>(aic, loo_neg ? -1.0f : 1.0f,
-                                           old.min(j), ba.x, ba.y, cqp));
+      each_unit<WIDE>(L, [&](int u) {
+        const int b0 = rptr[i];
+        const int dc = rptr[i + 1] - b0;
+        const int ci = i * L + u;
+        Chk<S> old{};
+        uint32_t ometa = 0;
+        if (t > 0) {
+          old = chk[ci];
+          ometa = signs[last + ci] >> kMetaShift;
+        }
+        const int oargm = ometa & 0xffff, opar = (ometa >> 16) & 1;
+        const int ouni = ometa >> 17;
+        // where the row shares (beta, alpha) at t, every block's alpha is
+        // this one, bit for bit
+        const int un = uni[cur * p.mb + i];
+        const float arow = bac[b0].y;
+        // pass 1: the c2v stored at t - 1 leaves the column sum (ext), the
+        // fresh v2c from ext, the running (min1, min2, first argmin), the
+        // negative count and the sign bits. OLD: the c2v taken back is none
+        // (t = 0), picked from the four (1) or transformed from min1 or min2
+        // with the tables of t - 1 (2); a loop for each
+        float min1 = 0.0f, min2 = kInf;
+        int argm = 0, neg_cnt = 0;
+        const auto pass1 = [&](auto old_kind) {
+          constexpr int OLD = decltype(old_kind)::value;
+          const Slots<S> oslot(old);
+          for (int kw = 0; kw < dc; kw += 32) {
+            uint32_t* sw = signs + (kw >> 5) * ML + ci;
+            const uint32_t osigns = OLD ? *sw : 0u;
+            const auto v2c_at = [&](int k) {
+              const int b = b0 + k;
+              const int2 cs = bcs[b];
+              int v = u + cs.y;
+              v = (v >= L) ? v - L : v;
+              S* var_v = &vars[2 * (cs.x + v)];
+              float l, ext;
+              ld_pair(var_v, l, ext);
+              if constexpr (OLD != 0) {
+                const int j = oargm == k;
+                const int loo_neg = ((osigns >> (k & 31)) & 1) ^ opar;
+                float c2;
+                if constexpr (OLD == 1) {
+                  c2 = oslot.pick(j, loo_neg);
+                } else {
+                  const float2 ba = bap[b];
+                  c2 = rnd<S>(c2v_kind<KIND>(aic, loo_neg ? -1.0f : 1.0f,
+                                             old.min(j), ba.x, ba.y, cqp));
+                }
+                ext = rnd<S>(ext - c2);
               }
-              ext = rnd<S>(ext - c2);
+              st(var_v + 1, ext);
+              // alpha inside the CN: a storage-type add; otherwise the
+              // float32 weight promotes llr + alpha * ext to float32
+              const float ab = un ? arow : bac[b].y;
+              return aic ? rnd<S>(l + ext) : l + ab * ext;
+            };
+            uint32_t nsigns = 0u;
+            int k = kw;
+            if (k == 0) {  // edge 0 starts the chain
+              const float nv = v2c_at(0);
+              min1 = fabsf(nv);
+              neg_cnt = nv < 0.0f;
+              nsigns = (uint32_t)neg_cnt;
+              k = 1;
             }
-            st(var_v + 1, ext);
-            // alpha inside the CN: a storage-type add; otherwise the
-            // float32 weight promotes llr + alpha * ext to float32
-            const float ab = un ? arow : bac[b].y;
-            return aic ? rnd<S>(l + ext) : l + ab * ext;
-          };
-          uint32_t nsigns = 0u;
-          int k = kw;
-          if (k == 0) {  // edge 0 starts the chain
-            const float nv = v2c_at(0);
-            min1 = fabsf(nv);
-            neg_cnt = nv < 0.0f;
-            nsigns = (uint32_t)neg_cnt;
-            k = 1;
+            const int kend = min(kw + 32, dc);
+  #pragma unroll 2
+            for (; k < kend; ++k) {
+              const float nv = v2c_at(k);
+              const float mk = fabsf(nv);
+              const int negk = nv < 0.0f;
+              const bool new_min = mk < min1;
+              min2 = new_min ? min1 : nan_min(min2, mk);
+              min1 = new_min ? mk : min1;
+              argm = new_min ? k : argm;
+              neg_cnt += negk;
+              nsigns |= (uint32_t)negk << (k & 31);
+            }
+            *sw = nsigns;
           }
-          const int kend = min(kw + 32, dc);
-#pragma unroll 2
-          for (; k < kend; ++k) {
-            const float nv = v2c_at(k);
-            const float mk = fabsf(nv);
-            const int negk = nv < 0.0f;
-            const bool new_min = mk < min1;
-            min2 = new_min ? min1 : nan_min(min2, mk);
-            min1 = new_min ? mk : min1;
-            argm = new_min ? k : argm;
-            neg_cnt += negk;
-            nsigns |= (uint32_t)negk << (k & 31);
-          }
-          *sw = nsigns;
-        }
-      };
-      if (t == 0)
-        pass1(Const<0>{});
-      else if (ouni)
-        pass1(Const<1>{});
-      else
-        pass1(Const<2>{});
-      if (dc == 1) min2 = min1;  // degree-1 checks
-      const int par = neg_cnt & 1;
-      // the new state: the row's four c2v with the tables of t, or the
-      // two minima
-      Chk<S> s;
-      if (un) {
-        const float2 ba = bac[b0];
-        const auto c2v_of = [&](float sign, float mag) {
-          return rnd<S>(c2v_kind<KIND>(aic, sign, mag, ba.x, ba.y, cqt));
         };
-        s.set_c2v(c2v_of(1.0f, min1), c2v_of(-1.0f, min1),
-                  c2v_of(1.0f, min2), c2v_of(-1.0f, min2));
-      } else {
-        s.set_min(min1, min2);
-      }
-      // pass 2: each edge's c2v at t, picked (PICK) or transformed, back
-      // into the column sum; a loop for each
-      const auto pass2 = [&](auto pick) {
-        constexpr bool PICK = decltype(pick)::value;
-        const Slots<S> slot(s);
-        for (int kw = 0; kw < dc; kw += 32) {
-          const uint32_t w = signs[(kw >> 5) * ML + ci];
-          const int kend = min(kw + 32, dc);
-#pragma unroll 2
-          for (int k = kw; k < kend; ++k) {
-            const int b = b0 + k;
-            const int2 cs = bcs[b];
-            int v = u + cs.y;
-            v = (v >= L) ? v - L : v;
-            S* cs_v = &vars[2 * (cs.x + v) + 1];
-            const int j = argm == k;
-            const int loo_neg = ((w >> (k & 31)) & 1) ^ par;
-            float c2;
-            if constexpr (PICK) {
-              c2 = slot.pick(j, loo_neg);
-            } else {
-              const float2 ba = bac[b];
-              c2 = rnd<S>(c2v_kind<KIND>(aic, loo_neg ? -1.0f : 1.0f,
-                                         s.min(j), ba.x, ba.y, cqt));
-            }
-            st(cs_v, ld(cs_v) + c2);
-          }
+        if (t == 0)
+          pass1(Const<0>{});
+        else if (ouni)
+          pass1(Const<1>{});
+        else
+          pass1(Const<2>{});
+        if (dc == 1) min2 = min1;  // degree-1 checks
+        const int par = neg_cnt & 1;
+        // the new state: the row's four c2v with the tables of t, or the
+        // two minima
+        Chk<S> s;
+        if (un) {
+          const float2 ba = bac[b0];
+          const auto c2v_of = [&](float sign, float mag) {
+            return rnd<S>(c2v_kind<KIND>(aic, sign, mag, ba.x, ba.y, cqt));
+          };
+          s.set_c2v(c2v_of(1.0f, min1), c2v_of(-1.0f, min1),
+                    c2v_of(1.0f, min2), c2v_of(-1.0f, min2));
+        } else {
+          s.set_min(min1, min2);
         }
-      };
-      if (un)
-        pass2(Const<1>{});
-      else
-        pass2(Const<0>{});
-      chk[ci] = s;
-      const uint32_t meta = (uint32_t)argm | ((uint32_t)par << 16) |
-                            ((uint32_t)un << 17);
-      uint32_t* lw = signs + last + ci;  // keeps this row's sign bits
-      const uint32_t bits = (dc > 32 * (y.nw - 1)) ? *lw & 0x3fffu : 0u;
-      *lw = bits | (meta << kMetaShift);
+        // pass 2: each edge's c2v at t, picked (PICK) or transformed, back
+        // into the column sum; a loop for each
+        const auto pass2 = [&](auto pick) {
+          constexpr bool PICK = decltype(pick)::value;
+          const Slots<S> slot(s);
+          for (int kw = 0; kw < dc; kw += 32) {
+            const uint32_t w = signs[(kw >> 5) * ML + ci];
+            const int kend = min(kw + 32, dc);
+  #pragma unroll 2
+            for (int k = kw; k < kend; ++k) {
+              const int b = b0 + k;
+              const int2 cs = bcs[b];
+              int v = u + cs.y;
+              v = (v >= L) ? v - L : v;
+              S* cs_v = &vars[2 * (cs.x + v) + 1];
+              const int j = argm == k;
+              const int loo_neg = ((w >> (k & 31)) & 1) ^ par;
+              float c2;
+              if constexpr (PICK) {
+                c2 = slot.pick(j, loo_neg);
+              } else {
+                const float2 ba = bac[b];
+                c2 = rnd<S>(c2v_kind<KIND>(aic, loo_neg ? -1.0f : 1.0f,
+                                           s.min(j), ba.x, ba.y, cqt));
+              }
+              st(cs_v, ld(cs_v) + c2);
+            }
+          }
+        };
+        if (un)
+          pass2(Const<1>{});
+        else
+          pass2(Const<0>{});
+        chk[ci] = s;
+        const uint32_t meta = (uint32_t)argm | ((uint32_t)par << 16) |
+                              ((uint32_t)un << 17);
+        uint32_t* lw = signs + last + ci;  // keeps this row's sign bits
+        const uint32_t bits = (dc > 32 * (y.nw - 1)) ? *lw & 0x3fffu : 0u;
+        *lw = bits | (meta << kMetaShift);
+      });
       __syncthreads();
     }
   }
@@ -401,36 +410,40 @@ __global__ void __launch_bounds__(MAXT) fused_layered_kernel(LayerParams p) {
 
   // posterior = llr + colsum, bv quantizer of T - 1, stored in S
   const Quant vqf{qcs[2], vtab};
-  for (int j = 0; j < p.nb; ++j) {
-    const int idx = j * L + u;
-    S* var_v = &vars[2 * idx];
-    float l, colsum;
-    ld_pair(var_v, l, colsum);
-    float post = rnd<S>(l + colsum);
-    if (vq) post = vqf(post);
-    st(var_v, post);
-    const float stored = ld(var_v);
-    if (p.post != nullptr)
-      st(static_cast<S*>(p.post) + f * n + idx, stored);
-    else
-      p.bits[f * n + idx] = (int8_t)(stored < 0.0f);
-  }
+  each_unit<WIDE>(L, [&](int u) {
+    for (int j = 0; j < p.nb; ++j) {
+      const int idx = j * L + u;
+      S* var_v = &vars[2 * idx];
+      float l, colsum;
+      ld_pair(var_v, l, colsum);
+      float post = rnd<S>(l + colsum);
+      if (vq) post = vqf(post);
+      st(var_v, post);
+      const float stored = ld(var_v);
+      if (p.post != nullptr)
+        st(static_cast<S*>(p.post) + f * n + idx, stored);
+      else
+        p.bits[f * n + idx] = (int8_t)(stored < 0.0f);
+    }
+  });
   __syncthreads();
 
   // K3: syndrome of the stored posterior, per base row
   int fail = 0;
-  for (int i = 0; i < p.mb; ++i) {
-    int parity = 0;
-    for (int b = rptr[i]; b < rptr[i + 1]; ++b) {
-      const int2 cs = bcs[b];
-      int v = u + cs.y;
-      v = (v >= L) ? v - L : v;
-      parity ^= (int)(ld(&vars[2 * (cs.x + v)]) < 0.0f);
+  each_unit<WIDE>(L, [&](int u) {
+    for (int i = 0; i < p.mb; ++i) {
+      int parity = 0;
+      for (int b = rptr[i]; b < rptr[i + 1]; ++b) {
+        const int2 cs = bcs[b];
+        int v = u + cs.y;
+        v = (v >= L) ? v - L : v;
+        parity ^= (int)(ld(&vars[2 * (cs.x + v)]) < 0.0f);
+      }
+      fail |= parity;
     }
-    fail |= parity;
-  }
+  });
   const int any_fail = __syncthreads_or(fail);
-  if (u == 0) p.ok[f] = (uint8_t)(any_fail == 0);
+  if (tid == 0) p.ok[f] = (uint8_t)(any_fail == 0);
 }
 
 template <typename S>
@@ -439,25 +452,35 @@ Layout layout_of(const LayerParams& p, bool onchip) {
                    p.var.q_levels, p.v_mode, p.v_levels, onchip);
 }
 
-template <typename S, int MAXT, bool ONCHIP>
+template <typename S, int MAXT, bool ONCHIP, bool WIDE>
 const void* instance(int kind) {
   switch (kind) {
-    case kNms: return (const void*)fused_layered_kernel<S, kNms, MAXT, ONCHIP>;
-    case kOms: return (const void*)fused_layered_kernel<S, kOms, MAXT, ONCHIP>;
-    case kRcq: return (const void*)fused_layered_kernel<S, kRcq, MAXT, ONCHIP>;
+    case kNms:
+      return (const void*)fused_layered_kernel<S, kNms, MAXT, ONCHIP, WIDE>;
+    case kOms:
+      return (const void*)fused_layered_kernel<S, kOms, MAXT, ONCHIP, WIDE>;
+    case kRcq:
+      return (const void*)fused_layered_kernel<S, kRcq, MAXT, ONCHIP, WIDE>;
     case kWrcq:
-      return (const void*)fused_layered_kernel<S, kWrcq, MAXT, ONCHIP>;
-    default: return (const void*)fused_layered_kernel<S, kOrcq, MAXT, ONCHIP>;
+      return (const void*)fused_layered_kernel<S, kWrcq, MAXT, ONCHIP, WIDE>;
+    default:
+      return (const void*)fused_layered_kernel<S, kOrcq, MAXT, ONCHIP, WIDE>;
   }
 }
 
-// the instance that launches L threads with the check state on chip or in
-// the scratch
+template <typename S, bool ONCHIP>
+const void* instance_for(int kind, int L) {
+  if (L <= 768) return instance<S, 768, ONCHIP, false>(kind);
+  return (L <= 1024) ? instance<S, 1024, ONCHIP, false>(kind)
+                     : instance<S, 1024, ONCHIP, true>(kind);
+}
+
+// the instance for a lift of L (block_threads(L) threads) with the check
+// state on chip or in the scratch
 template <typename S>
 const void* kernel_for(int kind, int L, bool onchip) {
-  if (L <= 768)
-    return onchip ? instance<S, 768, true>(kind) : instance<S, 768, false>(kind);
-  return onchip ? instance<S, 1024, true>(kind) : instance<S, 1024, false>(kind);
+  return onchip ? instance_for<S, true>(kind, L)
+                : instance_for<S, false>(kind, L);
 }
 
 template <typename S>
@@ -469,7 +492,8 @@ cudaError_t launch(LayerParams p, int B, cudaStream_t stream) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&p};
-  return cudaLaunchKernel(fn, dim3(B), dim3(p.L), args, smem, stream);
+  return cudaLaunchKernel(fn, dim3(B), dim3(block_threads(p.L)), args, smem,
+                          stream);
 }
 
 template <typename S>
@@ -479,8 +503,8 @@ int occupancy(const LayerParams& p, bool onchip) {
   int blocks = -1;
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, p.L, smem) !=
-          cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fn, block_threads(p.L), smem) != cudaSuccess)
     return -1;
   return blocks;
 }
@@ -574,7 +598,7 @@ extern "C" int ldpc_fused_layered_state_bytes(int nb, int mb, int NB, int L,
       .state;
 }
 
-// resident CTAs per SM of the kernel at block size L with the check state
+// resident CTAs per SM of the kernel for a lift of L with the check state
 // on chip or not (-1 on a CUDA error)
 extern "C" int ldpc_fused_layered_occupancy(int nb, int mb, int NB, int L,
                                             int dcmax, int is_bf16, int kind,

@@ -1,4 +1,15 @@
-from ldpc_tpu_torch.decode.engine import DecodeResult, VariantSpec, make_layers
+from ldpc_tpu_torch.decode.engine import (
+    DecodeResult,
+    VariantSpec,
+    decode_batch,
+    decode_batch_layered,
+    make_layers,
+)
+from ldpc_tpu_torch.decode.bucketed_engine import (
+    BucketedGraph,
+    bucketed_decode_batch,
+    build_bucketed_graph,
+)
 from ldpc_tpu_torch.decode.variants import (
     Decoder,
     basic_min_sum,

@@ -1,14 +1,24 @@
-"""Decoder spec, result type and quantizer routing shared by the engines.
+"""Decoder spec, result type and the general (non-QC) engines.
 
 Counterpart of ``ldpc_tpu/decode/engine.py``: :class:`VariantSpec` (numpy
 fields, the same validation), :class:`DecodeResult` (a NamedTuple of
 tensors), the static quantize-dequantize routing of ``_make_qdq`` and the
-numpy ``make_layers``. Also the pieces every QC decode shares: the
-per-iteration tables (``_scan_xs`` with the per-block beta/alpha of
-``qc_engine._per_block_weights``, built on the device once per spec), the
-check-node min tree and variant transform, and the syndrome. The general
-and layered torch engines (``decode_batch``, ``decode_batch_layered``) are
-not ported yet.
+numpy ``make_layers``. Also the pieces every decode shares: the
+per-iteration tables (``_scan_xs`` with the per-block or per-edge
+beta/alpha, built on the device once per spec), the check-node min tree
+and variant transform, the QC syndrome and the convergence freezing.
+
+:func:`decode_batch` (flooding) and :func:`decode_batch_layered` are the
+JAX package's general engines as plain PyTorch ops on whatever device the
+LLRs are on, forward only (the ``ste``/``return_trajectory`` training
+calls wait for ``train/``). Layout ``[E, B]`` for edge messages and
+``[m, max_dc, B]`` for the check slots, batch innermost; the graph's
+index tables go to the device once per (graph, device). Every sum runs in
+a fixed order, one add at a time in slot order, so the card gives the
+CPU's bits and the flooding engine the bucketed engine's
+(``bucketed_engine.py``); the check-node minimum and argmin are
+``torch.amin``/``torch.argmin``, which, as ``jnp.min``/``jnp.argmin``,
+return a NaN as the minimum and the first NaN's index.
 """
 
 from __future__ import annotations
@@ -24,12 +34,16 @@ from ldpc_tpu_torch.codes import DecoderGraph
 from ldpc_tpu_torch.quantizer import power_qdq, staircase_qdq, uniform_qdq
 
 __all__ = ["VariantSpec", "DecodeResult", "qdq_mode", "make_qdq",
-           "make_layers"]
+           "make_layers", "decode_batch", "decode_batch_layered"]
 
-# device copies of a spec's tables, per (T, device); an entry goes when its
-# spec does
+# device copies of a spec's tables, per (T, NB, device), and of a general
+# graph's index tables, per device (and per layering); an entry goes when
+# its spec or graph does
 _SPEC_TABLES: "weakref.WeakKeyDictionary[VariantSpec, dict]" = \
     weakref.WeakKeyDictionary()
+_GRAPH_TABLES: "weakref.WeakKeyDictionary[DecoderGraph, dict]" = \
+    weakref.WeakKeyDictionary()
+_INF = float("inf")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -155,7 +169,7 @@ def make_layers(graph: DecoderGraph, num_layers: Optional[int] = None):
 
 def _spec_tables(spec: VariantSpec, T: int, NB: int, device) -> dict:
     per = _SPEC_TABLES.setdefault(spec, {})
-    key = (T, torch.device(device))
+    key = (T, NB, torch.device(device))
     if key not in per:
         def tab(a, w):
             if a is None:
@@ -181,8 +195,10 @@ def _tables(weights, spec: VariantSpec, T: int, NB: int, device) -> dict:
     """Per-(iteration, block) float32 weight tables ``beta``/``alpha``
     [T, NB] and the quantizer tables ``thr``/``vthr`` [T, L] and
     ``qp``/``vqp`` [T, 2], on ``device``: ``ldpc_tpu``'s ``_scan_xs`` with
-    ``_per_block_weights`` applied (a fixed weight fills its table).
-    Weights on another device are moved there."""
+    ``_per_block_weights`` applied (a fixed weight fills its table). For a
+    general (non-QC) spec NB is the edge count E and the tables are
+    per-edge (``_per_edge_weights``). Weights on another device are moved
+    there."""
     c = _spec_tables(spec, T, NB, device)
 
     def wtab(key):
@@ -259,3 +275,277 @@ def _syndrome_ok(post, qc, lift_dim: int = -1):
                               -int(qc.block_shift[b]), dims=lift_dim)
         fail |= par
     return ~fail.any(dim=lift_dim)
+
+
+class _Freeze:
+    """Convergence freezing (``ldpc_tpu``'s scan carry): after each syndrome
+    check, frames not yet done take this check's posterior and iteration
+    count; a frame whose syndrome passes is done from then on. The
+    posterior's last axis is the batch."""
+
+    def __init__(self, post0):
+        B = post0.shape[-1]
+        self.post = post0
+        self.done = torch.zeros(B, dtype=torch.bool, device=post0.device)
+        self.iters = torch.zeros(B, dtype=torch.int32, device=post0.device)
+
+    def check(self, post, ok, t_last: int):
+        self.post = torch.where(self.done, self.post, post)
+        self.iters = self.iters.masked_fill(~self.done, t_last + 1)
+        self.done = self.done | ok
+
+    def result(self, n: int) -> DecodeResult:
+        post = self.post.reshape(n, self.post.shape[-1]).T.contiguous()
+        return DecodeResult(bits=(post < 0).to(torch.int32), posterior=post,
+                            iterations=self.iters, success=self.done)
+
+
+# -- the general engines: padded slot tables of a DecoderGraph --------------
+
+
+def _pad(x):
+    """``x`` with one zero row appended (the padding slot's target)."""
+    return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+
+
+def _general_tables(graph: DecoderGraph, device) -> dict:
+    """int64 index tables of a general graph on ``device``: the check slots
+    ``cn_slots`` [m * max_dc] (pad E) with ``cn_mask`` [m, max_dc, 1], the
+    inverse ``edge_cn_slot`` [E], the variable slots ``vn_slots``
+    [max_dv, n] (slot k of every variable; pad E), ``edge_var`` [E] and
+    the syndrome's ``cn_var_slots`` [m * max_dc] (pad n)."""
+    per = _GRAPH_TABLES.setdefault(graph, {})
+    device = torch.device(device)
+    if device not in per:
+        def ints(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int64),
+                                   device=device)
+
+        per[device] = dict(
+            cn_slots=ints(graph.cn_slots.reshape(-1)),
+            cn_mask=torch.as_tensor(graph.cn_mask[..., None], device=device),
+            edge_cn_slot=ints(graph.edge_cn_slot),
+            vn_slots=ints(graph.vn_slots.T),
+            edge_var=ints(graph.edge_var),
+            cn_var_slots=ints(graph.cn_var_slots.reshape(-1)),
+            iota=torch.arange(graph.max_dc, device=device).view(1, -1, 1))
+    return per[device]
+
+
+def _cn_loo(msgs, mask, iota, min2_where_inf: bool):
+    """Leave-one-out (sign, magnitude) of every slot of the float32
+    messages ``msgs`` [rows, d, B] (slots outside ``mask`` ignored):
+    min1/min2 over |x| with the first argmin, the sign from the parity of
+    the negative count (x < 0, so -0.0 is positive). A NaN is the minimum,
+    and the first NaN the argmin, as in ``jnp.min``/``jnp.argmin``.
+    Degree-1 rows take min2 = min1; the general engine also where min2 is
+    infinite (``min2_where_inf``), the bucketed engine only there."""
+    mag = msgs.abs()
+    neg = msgs < 0
+    if mask is not None:
+        mag = torch.where(mask, mag, _INF)
+        neg = neg & mask
+    min1 = mag.amin(dim=1, keepdim=True)
+    is_min = iota == mag.argmin(dim=1, keepdim=True)
+    if msgs.shape[1] > 1:
+        min2 = torch.where(is_min, _INF, mag).amin(dim=1, keepdim=True)
+        if min2_where_inf:
+            min2 = torch.where(torch.isinf(min2), min1, min2)
+    else:
+        min2 = min1
+    neg = neg.to(torch.int32)
+    neg_cnt = neg.sum(dim=1, keepdim=True, dtype=torch.int32)
+    loo_sign = 1.0 - 2.0 * ((neg_cnt - neg) & 1).to(torch.float32)
+    return loo_sign, torch.where(is_min, min2, min1)
+
+
+def _slot_sum(x, slots):
+    """``sum_k x[slots[k]]`` over the rows of ``slots`` [K, n], added one
+    slot at a time in slot order (a padding slot adds the zero row)."""
+    out = x.index_select(0, slots[0])
+    for k in range(1, slots.shape[0]):
+        out = out + x.index_select(0, slots[k])
+    return out
+
+
+def _parity_ok(neg, slots, m: int):
+    """Per-frame success from ``neg`` [n, B] (bool, x < 0) and a check
+    slot table ``slots`` [m * max_dc] (pad n): every check's parity 0."""
+    par = _pad(neg).index_select(0, slots).view(m, -1, neg.shape[-1])
+    return ~(par.sum(dim=1, dtype=torch.int32) & 1).bool().any(dim=0)
+
+
+def _check_llr_general(llr, graph: DecoderGraph):
+    if llr.ndim != 2 or llr.shape[1] != graph.n:
+        raise ValueError(f"llr must be [B, {graph.n}], got "
+                         f"{tuple(llr.shape)}")
+
+
+def _cn_update(v2c, g, graph: DecoderGraph, spec: VariantSpec, beta,
+               alpha, qdq):
+    """One flooding check-node update: v2c [E, B] -> c2v [E, B], with the
+    per-edge ``beta``/``alpha`` [E] of the iteration."""
+    B = v2c.shape[-1]
+    msgs = _pad(v2c).index_select(0, g["cn_slots"]).view(
+        graph.m, graph.max_dc, B)
+    loo_sign, loo_mag = _cn_loo(msgs, g["cn_mask"], g["iota"], True)
+    sign_e = loo_sign.view(-1, B).index_select(0, g["edge_cn_slot"])
+    mag_e = loo_mag.view(-1, B).index_select(0, g["edge_cn_slot"])
+    return _transform(spec, qdq, beta[:, None], alpha[:, None], sign_e,
+                      mag_e)
+
+
+def _vn_update(c2v, llr_T, llr_e, g, spec: VariantSpec, alpha, vqdq):
+    """Variable-node update: c2v [E, B] -> (v2c [E, B], posterior [n, B]);
+    the column sums add a variable's c2v one by one in slot order."""
+    colsum = _slot_sum(_pad(c2v), g["vn_slots"])
+    post = llr_T + colsum  # plain sum, no alpha
+    ext = colsum.index_select(0, g["edge_var"]) - c2v
+    v2c = llr_e + ext if spec.alpha_in_cn else llr_e + alpha[:, None] * ext
+    if vqdq is not None:
+        v2c, post = vqdq(v2c), vqdq(post)
+    return v2c, post
+
+
+def decode_batch(
+    llr: torch.Tensor,           # [B, n]
+    weights,                     # {'beta': [T, n_beta] | None, 'alpha': ...}
+    *,
+    graph: DecoderGraph,
+    spec: VariantSpec,
+    max_iterations: int,
+) -> DecodeResult:
+    """Flooding-schedule batched decode of ``llr`` [B, n] over a general
+    Tanner graph, forward only, in float32 on ``llr``'s device. Early exit
+    is realized as output freezing (the syndrome is checked after every
+    iteration), so ``iterations`` is the first converged iteration + 1, or
+    T. Returns int32 bits, the float32 posterior, iterations and
+    success."""
+    _check_llr_general(llr, graph)
+    T, dev = max_iterations, llr.device
+    g = _general_tables(graph, dev)
+    tabs = _tables(weights, spec, T, graph.num_edges, dev)
+    llr_T = llr.to(torch.float32).T.contiguous()          # [n, B]
+    llr_e = llr_T.index_select(0, g["edge_var"])           # [E, B]
+    v2c = llr_e
+    freeze = _Freeze(llr_T)
+    for t in range(T):
+        qdq = _qdq_at(spec, tabs, t, False, False)
+        vqdq = _qdq_at(spec, tabs, t, True, False)
+        beta, alpha = tabs["beta"][t], tabs["alpha"][t]
+        c2v = _cn_update(v2c, g, graph, spec, beta, alpha, qdq)
+        v2c, post = _vn_update(c2v, llr_T, llr_e, g, spec, alpha, vqdq)
+        freeze.check(post, _parity_ok(post < 0, g["cn_var_slots"], graph.m),
+                     t)
+    return freeze.result(graph.n)
+
+
+def _layer_tables(graph: DecoderGraph, layer_checks: np.ndarray,
+                  device) -> list:
+    """Per layer of ``layer_checks`` [L, ml] (pad m), on ``device``: the
+    flat check slots ``slots`` [ml * max_dc] (pad E) and their variables
+    ``evar`` (pad n), the ``mask`` [ml, max_dc, 1], the real slots'
+    positions ``pos`` and edge ids ``edges`` (where the new c2v go), and
+    the column-sum ``rounds``: (positions, variables) of the r-th
+    occurrence of each variable in slot order. A layer whose checks share
+    no variable has one round; where ``num_layers`` forced checks that
+    share variables into one layer, round r adds each variable's r-th
+    difference, so duplicates add in slot order, as ``ldpc_tpu``'s
+    scatter-add does on the CPU, with no atomics."""
+    per = _GRAPH_TABLES.setdefault(graph, {})
+    lc = np.ascontiguousarray(layer_checks, np.int64)
+    key = (torch.device(device), lc.shape, lc.tobytes())
+    if key not in per:
+        E, n = graph.num_edges, graph.n
+        slots_p = np.concatenate(
+            [graph.cn_slots, np.full((1, graph.max_dc), E, np.int32)])
+        evar_p = np.concatenate([graph.edge_var, np.int32([n])])
+
+        def ints(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+        layers = []
+        for checks in lc:
+            slots = slots_p[checks].reshape(-1)
+            evar = evar_p[slots]
+            pos = np.flatnonzero(slots != E)
+            seen: dict = {}
+            rounds: list = []
+            for p in pos:
+                r = seen.get(int(evar[p]), 0)
+                seen[int(evar[p])] = r + 1
+                if r == len(rounds):
+                    rounds.append([])
+                rounds[r].append(p)
+            layers.append(dict(
+                slots=ints(slots), evar=ints(evar),
+                mask=torch.as_tensor((slots != E).reshape(len(checks), -1, 1),
+                                     device=device),
+                pos=ints(pos), edges=ints(slots[pos]),
+                rounds=[(ints(r), ints(evar[r])) for r in rounds]))
+        per[key] = layers
+    return per[key]
+
+
+def decode_batch_layered(
+    llr: torch.Tensor,           # [B, n]
+    weights,
+    layer_checks,                # [L, ml] check ids per layer, pad m
+    *,
+    graph: DecoderGraph,
+    spec: VariantSpec,
+    max_iterations: int,
+) -> DecodeResult:
+    """Layered-schedule batched decode over a general Tanner graph, forward
+    only, in float32 on ``llr``'s device: a persistent per-edge c2v memory
+    and per-variable column sums, updated layer by layer. Each layer forms
+    fresh v2c from the current sums, ``llr + alpha * (colsum - old)``, runs
+    the check-node update and folds ``new - old`` back into the sums. At
+    each iteration's end the V2C quantizer applies to the posterior
+    ``llr + colsum`` and the syndrome is checked."""
+    _check_llr_general(llr, graph)
+    T, dev = max_iterations, llr.device
+    E, B = graph.num_edges, llr.shape[0]
+    g = _general_tables(graph, dev)
+    layers = _layer_tables(graph, np.asarray(layer_checks), dev)
+    tabs = _tables(weights, spec, T, E, dev)
+    llr_T = llr.to(torch.float32).T.contiguous()          # [n, B]
+    llr_ext = _pad(llr_T)
+    # c2v and column sums with a padding row that stays zero
+    c2v_ext = torch.zeros((E + 1, B), dtype=torch.float32, device=dev)
+    colsum_ext = torch.zeros_like(llr_ext)
+    freeze = _Freeze(llr_T)
+    for t in range(T):
+        qdq = _qdq_at(spec, tabs, t, False, False)
+        vqdq = _qdq_at(spec, tabs, t, True, False)
+        beta_ext, alpha_ext = _pad(tabs["beta"][t]), _pad(tabs["alpha"][t])
+        for lay in layers:
+            slots, mask = lay["slots"], lay["mask"]
+            shape = mask.shape[:2] + (B,)
+            old = c2v_ext.index_select(0, slots).view(shape)
+            ext = colsum_ext.index_select(0, lay["evar"]).view(shape) - old
+            x = llr_ext.index_select(0, lay["evar"]).view(shape)
+            if spec.alpha_in_cn:
+                v2c = x + ext
+            else:
+                v2c = x + alpha_ext.index_select(0, slots).view(
+                    shape[:2] + (1,)) * ext
+            loo_sign, loo_mag = _cn_loo(v2c, mask, g["iota"], True)
+            bb = beta_ext.index_select(0, slots).view(shape[:2] + (1,))
+            ab = (alpha_ext.index_select(0, slots).view(shape[:2] + (1,))
+                  if spec.alpha_in_cn and spec.alpha_idx is not None
+                  else 0.0)
+            new = torch.where(mask, _transform(spec, qdq, bb, ab, loo_sign,
+                                               loo_mag), 0.0).view(-1, B)
+            delta = new - old.view(-1, B)
+            for pos, var in lay["rounds"]:
+                colsum_ext.index_copy_(0, var, colsum_ext.index_select(
+                    0, var) + delta.index_select(0, pos))
+            c2v_ext.index_copy_(0, lay["edges"],
+                                new.index_select(0, lay["pos"]))
+        post = llr_T + colsum_ext[:-1]
+        if vqdq is not None:
+            post = vqdq(post)
+        freeze.check(post, _parity_ok(post < 0, g["cn_var_slots"], graph.m),
+                     t)
+    return freeze.result(graph.n)

@@ -18,7 +18,10 @@ Counterparts of ``ldpc_tpu/decode/pallas_fused.py``:
 
 Both have the check-at-the-end contract: the returned posterior is
 iteration T's, ``success`` is its syndrome (K3), ``iterations`` is T for
-every frame.
+every frame. Any lift whose frame state fits the card's shared memory
+(K1: whose LLRs, column sums and tables fit) decodes: a block has one
+thread per check or variable of a base row or column up to lift 1024,
+and 1024 threads that each take several above it.
 
 On a CUDA tensor a wrapper launches its kernel (built by
 ``decode/_build.py``) or raises. On a CPU tensor, and only there, it runs
@@ -172,8 +175,6 @@ def _launch(flooding: bool, llr, tabs, qc: QCGraph, spec: VariantSpec,
 
     B, n = llr.shape
     L, dev = qc.lift, llr.device
-    if L > 1024:
-        raise ValueError(f"lift {L} > 1024 threads per block")
     is_bf16 = int(llr.dtype == torch.bfloat16)
     q_mode = qdq_mode(spec.qparams, spec.q_levels, closed)
     v_mode = qdq_mode(spec.v2c_qparams, spec.v2c_levels, closed)

@@ -29,8 +29,9 @@ import numpy as np
 import torch
 
 from ldpc_tpu_torch.decode.engine import (DecodeResult, VariantSpec,
-                                          _leave_one_out, _min_tree, _qdq_at,
-                                          _syndrome_ok, _tables, _transform)
+                                          _Freeze, _leave_one_out, _min_tree,
+                                          _qdq_at, _syndrome_ok, _tables,
+                                          _transform)
 
 __all__ = ["QCGraph", "build_qc_graph", "qc_decode_batch",
            "qc_decode_batch_layered"]
@@ -146,29 +147,6 @@ def _storage(llr, qc: QCGraph, dtype):
     return llr.to(dtype).T.contiguous().view(qc.nb, qc.lift, llr.shape[0])
 
 
-class _Freeze:
-    """Convergence freezing (``ldpc_tpu``'s scan carry): after each syndrome
-    check, frames not yet done take this check's posterior and iteration
-    count; a frame whose syndrome passes is done from then on."""
-
-    def __init__(self, post0):
-        B = post0.shape[-1]
-        self.post = post0
-        self.done = torch.zeros(B, dtype=torch.bool, device=post0.device)
-        self.iters = torch.zeros(B, dtype=torch.int32, device=post0.device)
-
-    def check(self, post, qc: QCGraph, t_last: int):
-        ok = _syndrome_ok(post, qc, lift_dim=0)
-        self.post = torch.where(self.done, self.post, post)
-        self.iters = self.iters.masked_fill(~self.done, t_last + 1)
-        self.done = self.done | ok
-
-    def result(self, qc: QCGraph) -> DecodeResult:
-        post = self.post.reshape(qc.n, self.post.shape[-1]).T.contiguous()
-        return DecodeResult(bits=(post < 0).to(torch.int32), posterior=post,
-                            iterations=self.iters, success=self.done)
-
-
 def qc_decode_batch(
     llr: torch.Tensor,           # [B, n]
     weights,                     # {'beta': [T, n_beta] | None, 'alpha': ...}
@@ -236,8 +214,8 @@ def qc_decode_batch(
     for t in range(T):
         v2c, post = iteration(v2c, t)
         if (t + 1) % check_every == 0:
-            freeze.check(post, qc, t)
-    return freeze.result(qc)
+            freeze.check(post, _syndrome_ok(post, qc, lift_dim=0), t)
+    return freeze.result(qc.n)
 
 
 def qc_decode_batch_layered(
@@ -295,5 +273,5 @@ def qc_decode_batch_layered(
         post = llr_T + colsum
         if vqdq is not None:
             post = vqdq(post).to(dtype)
-        freeze.check(post, qc, t)
-    return freeze.result(qc)
+        freeze.check(post, _syndrome_ok(post, qc, lift_dim=0), t)
+    return freeze.result(qc.n)

@@ -40,10 +40,10 @@ import ctypes
 import torch
 
 from ldpc_tpu_torch.decode.engine import (DecodeResult, VariantSpec,
-                                          _leave_one_out, _min_tree, _tables,
-                                          _transform)
+                                          _Freeze, _leave_one_out, _min_tree,
+                                          _syndrome_ok, _tables, _transform)
 from ldpc_tpu_torch.decode.fused import _KINDS, _QMODES
-from ldpc_tpu_torch.decode.qc_engine import (QCGraph, _Freeze, _graph_tables,
+from ldpc_tpu_torch.decode.qc_engine import (QCGraph, _graph_tables,
                                              _storage)
 from ldpc_tpu_torch.quantizer import power_qdq, staircase_qdq
 
@@ -211,8 +211,8 @@ def _decode(llr, weights, qc: QCGraph, spec: VariantSpec, T: int,
         for j in range(qc.nb):
             col(c2v, llr_T, v2c, post, tabs, qc, spec, j, t)
         if (t + 1) % check_every == 0:
-            freeze.check(post, qc, t)
-    return freeze.result(qc)
+            freeze.check(post, _syndrome_ok(post, qc, lift_dim=0), t)
+    return freeze.result(qc.n)
 
 
 def _qc_pallas_plain(llr, weights, *, qc: QCGraph, spec: VariantSpec,

@@ -24,14 +24,23 @@ A decoder lives on a device, the card (``"cuda"``) unless the caller asks
 for ``"cpu"``: its weights are kept there, and on a machine without a
 card ``make_decoder`` raises rather than fall back to the CPU.
 
-Of the call routes, the QC inference paths are ported: a QC decoder with
-``qc_options={"fused": True, ...}`` runs the fused layered or flooding
-decode (``decode/fused.py``); without ``fused`` it runs the torch QC
-engine (``decode/qc_engine.py``), flooding with the ``check_every``,
-``dtype`` and ``unroll`` options, layered always in f32. The training
-calls (``ste``/``return_trajectory``) and the non-QC engines raise
-``NotImplementedError`` naming the ROADMAP.md Queue 1 item that will port
-them.
+Every inference route is ported:
+
+- a QC decoder with ``qc_options={"fused": True, ...}`` runs the fused
+  layered or flooding decode (``decode/fused.py``); without ``fused`` the
+  torch QC engine (``decode/qc_engine.py``), flooding with the
+  ``check_every``, ``dtype`` and ``unroll`` options, layered in f32;
+- a non-QC decoder runs the general engines (``decode/engine.py``):
+  ``decode_batch`` (flooding) or, when ``layered``, ``decode_batch_layered``
+  over its ``layer_checks``, both in f32 with the syndrome checked every
+  iteration (they take no options);
+- ``make_decoder(bucketed=True)`` runs the degree-bucketed flooding engine
+  (``decode/bucketed_engine.py``) with ``dtype`` and ``check_every`` from
+  ``qc_options``.
+
+Each runs on the device of the LLRs it is given. The training calls
+(``ste``/``return_trajectory``) raise ``NotImplementedError`` naming the
+ROADMAP.md Queue 1 item that will port them (``train/``).
 """
 
 from __future__ import annotations
@@ -43,7 +52,12 @@ import numpy as np
 import torch
 
 from ldpc_tpu_torch.codes import DecoderGraph, LDPCCode, build_graph
-from ldpc_tpu_torch.decode.engine import DecodeResult, VariantSpec, make_layers
+from ldpc_tpu_torch.decode.bucketed_engine import (BucketedGraph,
+                                                   bucketed_decode_batch,
+                                                   build_bucketed_graph)
+from ldpc_tpu_torch.decode.engine import (DecodeResult, VariantSpec,
+                                          decode_batch, decode_batch_layered,
+                                          make_layers)
 from ldpc_tpu_torch.decode.qc_engine import (QCGraph, qc_decode_batch,
                                              qc_decode_batch_layered)
 from ldpc_tpu_torch.quantizer import (
@@ -145,7 +159,9 @@ class Decoder:
     ``lean``, ``closed_qdq``, ``check_every``; the TPU-only
     ``batch_tile``/``natural``/``interpret`` are accepted and ignored),
     else the flooding engine takes ``check_every``, ``dtype`` and
-    ``unroll`` and drops the fused-only keys.
+    ``unroll`` and drops the fused-only keys. A decoder with a
+    ``bucketed_graph`` takes ``dtype`` and ``check_every`` from them; the
+    general engines read none.
     """
 
     name: str
@@ -158,6 +174,8 @@ class Decoder:
     layer_checks: Optional[np.ndarray] = None
     qc: Optional[QCGraph] = None
     qc_options: Optional[dict] = None
+    # degree-bucketed layouts for the non-QC flooding fast path
+    bucketed_graph: Optional[BucketedGraph] = None
     recipe: Optional[dict] = None
     device: torch.device = torch.device("cuda")
 
@@ -187,9 +205,9 @@ class Decoder:
                     llr, w, qc=self.qc, spec=self.spec,
                     max_iterations=self.max_iterations)
         elif self.layered:
-            raise _not_ported("the general layered engine "
-                              "(decode_batch_layered)",
-                              "general and bucketed engines")
+            out = decode_batch_layered(
+                llr, w, self.layer_checks, graph=self.graph, spec=self.spec,
+                max_iterations=self.max_iterations)
         elif self.qc is not None and fused:
             from ldpc_tpu_torch.decode.fused import qc_fused_decode_batch
             # the kernel checks the syndrome once, at T
@@ -209,9 +227,15 @@ class Decoder:
             out = qc_decode_batch(
                 llr, w, qc=self.qc, spec=self.spec,
                 max_iterations=self.max_iterations, **opts)
+        elif self.bucketed_graph is not None:
+            out = bucketed_decode_batch(
+                llr, w, bg=self.bucketed_graph, spec=self.spec,
+                max_iterations=self.max_iterations,
+                **{k: opts[k] for k in ("dtype", "check_every")
+                   if k in opts})
         else:
-            raise _not_ported("the general flooding engine (decode_batch)",
-                              "general and bucketed engines")
+            out = decode_batch(llr, w, graph=self.graph, spec=self.spec,
+                               max_iterations=self.max_iterations)
         if squeeze:
             out = DecodeResult(
                 bits=out.bits[0],
@@ -317,16 +341,13 @@ def make_decoder(
     to the QC structure (base rows are the layers when ``layered``).
     ``device``: where the decoder's weights live and its initial weights
     are drawn (the card unless ``"cpu"``; raises if there is no card).
-    Initial weights: see the module docstring. ``bucketed=True`` (the
-    degree-bucketed engine) is not ported yet and raises.
+    Initial weights: see the module docstring. ``bucketed=True`` builds
+    the degree-bucketed layouts (non-QC flooding only).
     """
     device = resolve_device(device)
     if bucketed and (qc is not None or layered):
         raise ValueError("bucketed engine is flooding-only and non-QC; "
                          "drop bucketed=, or drop qc=/layered=")
-    if bucketed:
-        raise _not_ported("the bucketed engine", "general and bucketed "
-                          "engines")
     if kind not in ("ms", "nms", "oms", "rcq", "wrcq", "orcq"):
         raise ValueError(
             f"unknown decoder kind {kind!r}; expected one of "
@@ -435,6 +456,7 @@ def make_decoder(
 
     layer_checks = (make_layers(graph, num_layers)
                     if layered and qc is None else None)
+    bg = build_bucketed_graph(graph) if bucketed else None
     recipe = dict(
         kind=kind, sharing_type=sharing_type, factor=factor,
         max_iterations=T, bc=bc, bv=bv,
@@ -447,7 +469,8 @@ def make_decoder(
     return Decoder(
         name=dname, code=code, graph=graph, spec=spec, max_iterations=T,
         weights=weights, layered=layered, layer_checks=layer_checks, qc=qc,
-        qc_options=qc_options, recipe=recipe, device=device)
+        qc_options=qc_options, bucketed_graph=bg, recipe=recipe,
+        device=device)
 
 
 # -- reference-parity constructors -----------------------------------------

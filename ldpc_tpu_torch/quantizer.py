@@ -70,11 +70,17 @@ def _div(a, b):
     """``a / b`` as an IEEE division. Python numbers divide in Python; with
     a tensor on either side both become float32 tensors and go through
     ``torch.div`` (``number / tensor`` would multiply by a reciprocal, and
-    CUDA divides by a host scalar the same way)."""
+    CUDA divides by a host scalar the same way). A number meeting a tensor
+    is filled on the tensor's device, not copied from the host."""
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         dev = (a if isinstance(a, torch.Tensor) else b).device
-        return torch.div(torch.as_tensor(a, dtype=torch.float32, device=dev),
-                         torch.as_tensor(b, dtype=torch.float32, device=dev))
+
+        def f32(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(dtype=torch.float32, device=dev)
+            return torch.full((), float(v), dtype=torch.float32, device=dev)
+
+        return torch.div(f32(a), f32(b))
     return a / b
 
 

@@ -17,8 +17,9 @@ With ``early_exit_iters`` (T1) the wave is a compacting wave:
   T). When more frames survive than the budget holds, the whole wave falls
   back to the same schedule without compaction: the SAME LLRs are decoded
   at T1 and at T and each frame takes its T1 output if it converged there.
-- of a non-fused (engine) decoder, the decoder truncated to T1 iterations
-  on its own ``check_every`` schedule (T1 rounded up to a check boundary),
+- of a non-fused (engine) decoder, QC or general or bucketed, the decoder
+  truncated to T1 iterations on its own ``check_every`` schedule (T1
+  rounded up to a check boundary),
   or with ``stage1_fused`` the fused flooding kernel with its single check
   at T1 (``check_every`` must equal T1); up to ``survivor_budget``
   unconverged frames are re-decoded from scratch by the decoder itself.
@@ -464,8 +465,8 @@ class LDPCSimulator:
 def create_test_decoders(code, max_iterations: int = 10,
                          device="cuda") -> Dict[str, Decoder]:
     """The reference's 9-decoder comparison set plus W-OMS-RCQ, built on
-    ``device`` (only built: their general-engine routes are not ported
-    yet)."""
+    ``device``. On a code without a QC structure (every code of
+    ``examples.py``) each decodes on the general flooding engine."""
     from ldpc_tpu_torch.decode.variants import (
         basic_min_sum, neural_2d_min_sum, neural_min_sum,
         neural_offset_min_sum, rcq_min_sum, weighted_oms_rcq, weighted_rcq)

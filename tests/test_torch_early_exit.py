@@ -94,3 +94,38 @@ def test_two_checkpoint_validation():
     # a fused decoder refuses truncation itself (its check schedule is {T})
     with pytest.raises(ValueError):
         tdec.truncated(T1)
+
+
+def test_nan_frame_does_not_reach_a_survivor():
+    """A batch of one all-NaN frame (converged at t1: its posterior is NaN,
+    so its bits are 0 and its syndrome passes) and one stage-1 survivor.
+    The port gathers the survivor by index, so its stage-2 decode is that
+    frame's decode alone. ``ldpc_tpu`` gathers with a one-hot matmul
+    (``ldpc_tpu/decode/early_exit.py:96-98``), and 0 * NaN = NaN spreads
+    the NaN frame into every column of the survivor's row: the survivor
+    decodes to a NaN posterior, all-zero bits and success=True, and the
+    scatter ``P.T @ out2.posterior`` (``:109-111``) brings that back
+    (ROADMAP.md Queue 3, known differences of the reference)."""
+    from ldpc_tpu_torch.decode import two_checkpoint_stages
+    jdec, tdec = _pair()
+    llr = channel_llr(B, tdec.code.n, 4.0, seed=2)
+    stage1, full = two_checkpoint_stages(tdec, T1)
+    surv = int(np.flatnonzero(
+        ~stage1(torch.from_numpy(llr), tdec.weights).success.numpy())[0])
+    batch = np.stack([np.full(tdec.code.n, np.nan, np.float32), llr[surv]])
+    out, n = lt.make_two_checkpoint_decoder(tdec, t1=T1, survivor_budget=4)(
+        torch.from_numpy(batch))
+    alone = full(torch.from_numpy(batch[1:]), tdec.weights)
+    assert int(n) == 1
+    assert bool(out.success[0]) and not out.bits[0].any()
+    assert torch.isnan(out.posterior[0]).all()
+    assert torch.equal(out.posterior[1:], alone.posterior)
+    assert torch.equal(out.bits[1:], alone.bits)
+    assert torch.equal(out.success[1:], alone.success)
+    assert out.iterations.tolist() == [T1, T]
+    assert not torch.isnan(out.posterior[1]).any()
+    ref, ref_n = jax_two_checkpoint(jdec, t1=T1, survivor_budget=4)(
+        jnp.asarray(batch))
+    assert int(ref_n) == 1
+    assert np.isnan(np.asarray(ref.posterior)).all()
+    assert not np.asarray(ref.bits).any() and np.asarray(ref.success).all()

@@ -111,8 +111,8 @@ def test_unported_routes_refuse():
     fused = dict(fused=True, dtype=torch.float32)
     mk = lambda **kw: lt.make_decoder(code, kind="ms", device="cpu", **kw)
     for dec, kw in [
-        (mk(layered=True), {}),
-        (mk(), {}),
+        (mk(layered=True), dict(ste=True)),
+        (mk(bucketed=True), dict(return_trajectory=True)),
         (mk(qc=qc, layered=True), dict(ste=True)),
         (mk(qc=qc), dict(return_trajectory=True)),
         (mk(qc=qc, layered=True, qc_options=fused), dict(ste=True)),
@@ -122,11 +122,11 @@ def test_unported_routes_refuse():
     ]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             dec(llr, **kw)
-    with pytest.raises(NotImplementedError):
-        mk(bucketed=True)
-    # the QC engines run (the non-fused QC routes and the simulator's
-    # compaction over them are ported)
-    for dec in (mk(qc=qc), mk(qc=qc, layered=True)):
+    # the QC engines and the general, layered and bucketed engines run
+    # (every inference route and the simulator's compaction over the
+    # engines are ported)
+    for dec in (mk(qc=qc), mk(qc=qc, layered=True), mk(), mk(layered=True),
+                mk(bucketed=True)):
         assert dec(llr).bits.shape == (2, code.n)
     cfg = dict(max_frames=4, wave_size=2, device="cpu")
     for sim_kw in (dict(early_exit_iters=2), dict(early_exit_iters=2,
@@ -143,8 +143,19 @@ def test_unported_routes_refuse():
         with pytest.raises(NotImplementedError, match="report/"):
             getattr(sim, plot)()
     # a dropped decoder never hides an unported route
+
+    class Unported:
+        name, qc_options, weights = "unported", None, {}
+
+        def __init__(self):
+            self.code = code
+
+        def __call__(self, llr, weights=None):
+            raise NotImplementedError("ROADMAP.md Queue 1: train/")
+
     with pytest.raises(NotImplementedError):
-        sim.simulate_multiple_decoders({"general": mk()}, verbose=False)
+        sim.simulate_multiple_decoders({"unported": Unported()},
+                                       verbose=False)
 
 
 def test_device_defaults_to_the_card(monkeypatch):

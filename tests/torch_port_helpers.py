@@ -55,10 +55,30 @@ def decoder_pair(base, lift, T, jax_options=None, torch_options=None, **kw):
         lt.create_qc_code(base, lift=lift, max_iterations=T),
         max_iterations=T, qc=lt.build_qc_graph(base, lift),
         qc_options=torch_options, device="cpu", **kw)
-    tdec = tdec.replace_weights(lt.weights_from_numpy(
+    return jdec, carry_weights(jdec, tdec)
+
+
+def carry_weights(jdec, tdec):
+    """``tdec`` with ``jdec``'s (JAX) weights, on the CPU."""
+    return tdec.replace_weights(lt.weights_from_numpy(
         {k: (None if v is None else np.array(v))
          for k, v in jdec.weights.items()}, device="cpu"))
-    return jdec, tdec
+
+
+def general_pair(factory, code_kw, T, jax_options=None, torch_options=None,
+                 **kw):
+    """(JAX decoder, port decoder on the CPU) on the code that both
+    packages' ``factory`` (a code constructor's name) builds from
+    ``code_kw``, without a QC structure; the port decoder carries the JAX
+    decoder's weights."""
+    jdec = ldpc_tpu.make_decoder(
+        getattr(ldpc_tpu, factory)(max_iterations=T, **code_kw),
+        max_iterations=T, qc_options=jax_options, **kw)
+    tdec = lt.make_decoder(
+        getattr(lt, factory)(max_iterations=T, **code_kw),
+        max_iterations=T, qc_options=torch_options, device="cpu", **kw)
+    np.testing.assert_array_equal(jdec.code.H, tdec.code.H)
+    return jdec, carry_weights(jdec, tdec)
 
 
 def channel_llr(B, n, snr_db, seed):
@@ -71,13 +91,16 @@ def channel_llr(B, n, snr_db, seed):
 
 def assert_same_fields(a, b):
     """Two dataclasses (a port one and its JAX twin) hold equal fields;
-    numpy arrays equal in value and dtype."""
+    numpy arrays equal in value and dtype, dataclass fields compared the
+    same way."""
     fa = {f.name: getattr(a, f.name) for f in dataclasses.fields(a)}
     fb = {f.name: getattr(b, f.name) for f in dataclasses.fields(b)}
     assert fa.keys() == fb.keys()
     for k in fa:
         x, y = fa[k], fb[k]
-        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+        if dataclasses.is_dataclass(x):
+            assert_same_fields(x, y)
+        elif isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
             assert x is not None and y is not None, k
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y), k)
             assert np.asarray(x).dtype == np.asarray(y).dtype, k

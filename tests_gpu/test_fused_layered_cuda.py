@@ -123,11 +123,18 @@ def test_odd_lift_and_tiny_batch(card):
 
 
 def test_refuses_lift_over_1024(card):
+    """The kernel no longer refuses a lift above 1024 threads per block: a
+    lift of 1030 runs the instance whose 1024 threads take one or two
+    checks each, bit for bit with the plain version."""
     dec = _decoder(1030, kind="ms", factor=0.7)
-    llr = torch.zeros((2, dec.code.n), device=card)
-    with pytest.raises(ValueError, match="1024"):
-        lt.qc_fused_decode_batch_layered(llr, dec.weights, qc=dec.qc,
-                                         spec=dec.spec, max_iterations=T)
+    gen = torch.Generator(device=card).manual_seed(4)
+    llr = lt.awgn_llr(gen, torch.zeros((2, dec.code.n), device=card), 3.0)
+    args = dict(qc=dec.qc, spec=dec.spec, max_iterations=T,
+                dtype=torch.float32)
+    out = lt.qc_fused_decode_batch_layered(llr, dec.weights, **args)
+    ref = fused._fused_layered_plain(llr, dec.weights, **args)
+    torch.cuda.synchronize()
+    _same(out, ref, False)
 
 
 def _alternating(weights):
