@@ -63,7 +63,23 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    CPU's; the bucketed bf16 decoder through ``LDPCSimulator`` (32768-frame
    compacting waves, ``early_exit_iters=5``, ``check_every=5``) with its
    FER in a binomial band around the JAX package's; no K1, K4, K5 or K6
-   launch in the phase.
+   launch in the phase;
+11. training at full width: the zoo's two operating decoders
+   (``worcq_bc3_qc9472``, flooding T=10, and ``worcq_bc3_layered_t6``,
+   layered T=6: W-OMS-RCQ, sharing type 2, on QC(9472, 8192)) rebuilt from
+   their recipes with the port's initial weights, trained through
+   ``PosteriorJointTrainer`` with the configurations of
+   ``experiments/accuracy_bc3.py`` (B=128, 8 steps, one ``train_epoch``)
+   and ``experiments/train_layered_short.py`` (cosine with 8 warmup
+   updates: 4 steps, the first at learning rate 0, so its weights stay);
+   each step's loss, CUDA-event time and peak memory, the CUDA launches of
+   one step (torch.profiler); one B=16 batch stepped twice on the card and
+   on a CPU copy of the flooding decoder, held to float tolerance; the
+   gradient analyzer (``torch.func.vmap``) on 32 frames at 6.5 dB, four
+   of its norms recomputed one frame at a time; no K1, K4, K5 or K6
+   launch while training (the training route is the engines'); then each
+   trained decoder's weights in its fused bf16 twin, K4 (flooding) and K1
+   (layered) held to their plain versions bit for bit on 256 frames.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -90,6 +106,7 @@ generators.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -173,6 +190,23 @@ PB_SIM = dict(snr_range=(PB_SNR, PB_SNR), snr_step=0.25, max_frames=65536,
               save_results=False)
 # experiments/pbrl_fer_reference.py --frames 65536 (ldpc_tpu.sim, XLA:CPU)
 PB_REF_FER, PB_REF_FRAMES = 54307 / 65536, 65536
+# phase 11: training at full width on the zoo's two operating recipes
+# (zoo/<entry>/spec.json), with fresh weights from the port's generator.
+# Flooding: experiments/accuracy_bc3.py:96-103's configuration, 8 steps.
+# Layered: experiments/train_layered_short.py:85-90's, 4 steps; its
+# decay_steps is the run the zoo entry came from (32 epochs x 2048 // 128
+# batches = 512; the 4 steps taken here are inside the 8-step warmup)
+TR_CFG = dict(batch_size=128, learning_rate=2e-3, snr_range=(5.5, 7.5),
+              early_stop_accuracy=2.0, seed=0)
+TR_LAYERED_CFG = dict(TR_CFG, lr_schedule="cosine", warmup_steps=8,
+                      decay_steps=512)
+TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 8, 4, 16
+TR_ANALYZE = dict(num_samples=32, snr_db=6.5)
+# card vs CPU, one step: the loss (a mean) and the accuracy to a few
+# roundings, the gradient norm to the gradients' tolerance (the backward
+# of a gather adds with atomics on the card), the Adam-updated weights
+# to 1e-6; the analyzer's vmap norms against single frames likewise
+TR_TOL = dict(loss=2e-5, acc=1e-6, gnorm=1e-4, weights=1e-6, norms=1e-4)
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -735,12 +769,13 @@ def numpy_llr(B, n, snr_db, seed):
     return torch.from_numpy((2.0 * r / sigma2).astype(np.float32))
 
 
-def cuda_launches(fn):
+def cuda_launches(fn, cpu=True):
     """CUDA kernels launched by one call of ``fn``, from torch.profiler, or
-    None where the profiler sees no device activity."""
+    None where the profiler sees no device activity. ``cpu=False`` traces
+    the device alone (fewer events for a call of ~10^5 launches)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu +
+                 [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
@@ -853,6 +888,195 @@ def phase10(dev, card):
                              f"kernel: {counts}")
     print(f"  K1/K4/K5/K6 launches in phase 10: {counts}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def recipe_decoder(entry, dev):
+    """The zoo entry's decoder rebuilt from its recipe on ``dev``, with
+    the port's initial weights (not the entry's trained ones)."""
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.codes import load_protograph
+    from ldpc_tpu_torch.zoo import DEFAULT_ZOO_DIR
+    path = os.path.join(DEFAULT_ZOO_DIR, entry)
+    with open(os.path.join(path, "spec.json")) as f:
+        recipe = dict(json.load(f)["recipe"])
+    for k in ("quantizer_params", "v2c_quantizer_params"):
+        recipe[k] = [tuple(q) for q in recipe[k]]
+    base, lift = load_protograph(os.path.join(path, "protograph.txt"))
+    code = lt.create_qc_code(base, lift=lift,
+                             max_iterations=recipe["max_iterations"])
+    return lt.make_decoder(code, qc=lt.build_qc_graph(base, lift),
+                           device=dev, **recipe)
+
+
+def timed_epoch(trainer, steps):
+    """One ``train_epoch`` of ``steps`` batches with each step timed by
+    CUDA events (sampling excluded) and its peak memory read. Returns per
+    step (loss, accuracy, gradient norm, ms, peak bytes) and the weights
+    after the first step."""
+    rec, first = [], {}
+    step = trainer.train_step
+
+    def timed(llr, targets):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(llr, targets)
+        end.record()
+        torch.cuda.synchronize()
+        rec.append(tuple(float(v) for v in out) + (
+            start.elapsed_time(end), torch.cuda.max_memory_allocated()))
+        if len(rec) == 1:
+            first.update({k: v.clone() for k, v in
+                          trainer.decoder.weights.items()})
+        return out
+
+    trainer.train_step = timed
+    try:
+        trainer.train_epoch(None, steps)
+    finally:
+        del trainer.train_step
+    return rec, first
+
+
+def step_line(name, rec, launches, card):
+    losses = ", ".join(f"{r[0]:.6g}" for r in rec)
+    ms = [r[3] for r in rec[1:]]  # after the first (warm-up) step
+    return (f"  {name}: losses per step [{losses}]; accuracy "
+            f"{rec[-1][1]:.6f}, |grad| {rec[-1][2]:.4g}; step time "
+            f"{min(ms):.1f} / {np.median(ms):.1f} / {max(ms):.1f} ms (min / "
+            f"median / max of steps 2-{len(rec)}), peak memory "
+            f"{max(r[4] for r in rec) / 2 ** 30:.3f} GiB, "
+            f"{launches if launches else 'not measured'} CUDA launches per "
+            f"step (torch.profiler)  [{card}]")
+
+
+def phase11(dev, card):
+    """Training at full width: both recipes, card = CPU, the analyzer, and
+    the trained weights through K4 and K1."""
+    import ldpc_tpu_torch as lt
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    out = {}
+    decs = {}
+    for name, entry, cfg, steps in (
+            ("flooding", ZOO_ENTRY, TR_CFG, TR_STEPS),
+            ("layered", ZOO_LAYERED, TR_LAYERED_CFG, TR_LAYERED_STEPS)):
+        dec = recipe_decoder(entry, dev)
+        w0 = {k: v.clone() for k, v in dec.weights.items()}
+        tr = lt.PosteriorJointTrainer(dec, lt.TrainingConfig(**cfg))
+        t0 = time.perf_counter()
+        rec, first = timed_epoch(tr, steps)
+        t1 = time.perf_counter()
+        batch = tr.sample()
+        launches = cuda_launches(lambda: tr.train_step(*batch), cpu=False)
+        t2 = time.perf_counter()
+        if name == "layered" and not all(torch.equal(first[k], w0[k])
+                                         for k in w0):
+            raise AssertionError("the warmup's first update moved weights")
+        if not all(np.isfinite(r[:3]).all() for r in rec) or not all(
+                torch.isfinite(w).all() for w in dec.weights.values()):
+            raise AssertionError(f"{name}: a loss, norm or weight is not "
+                                 "finite")
+        print(("[11 training] " if name == "flooding" else "") +
+              f"{entry} ({dec.code.n}, {dec.code.k}) {name} T="
+              f"{dec.max_iterations}, B={cfg['batch_size']}, {steps} steps "
+              f"(one train_epoch), {lt.param_count(dec.weights)} weights, "
+              f"config {cfg}" + ("; weights after step 1 equal the initial "
+                                 "ones (learning rate 0)"
+                                 if name == "layered" else ""))
+        print(step_line(name, rec, launches, card) + f"; epoch {t1 - t0:.1f}"
+              f" s, the profiled step {t2 - t1:.1f} s")
+        decs[name], out[name] = dec, (rec, launches)
+
+    # card = CPU: one numpy batch, two steps of the flooding recipe
+    fresh = recipe_decoder(ZOO_ENTRY, dev)
+    pair = [lt.PosteriorJointTrainer(d, lt.TrainingConfig(**TR_CFG)) for d in
+            (fresh, dataclasses.replace(fresh, device=torch.device("cpu"))
+             .replace_weights(fresh.weights))]
+    x = numpy_llr(TR_CPU_B, fresh.code.n, 6.5, seed=11)
+    worst = dict(loss=0.0, acc=0.0, gnorm=0.0, weights=0.0)
+    t0 = time.perf_counter()
+    for i in range(2):
+        (lg, ag, gg), (lc, ac, gc) = [
+            tuple(float(v) for v in tr.train_step(x.to(tr.device),
+                                                  torch.zeros_like(x).to(
+                                                      tr.device)))
+            for tr in pair]
+        for key, a, b in (("loss", lg, lc), ("acc", ag, ac),
+                          ("gnorm", gg, gc)):
+            worst[key] = max(worst[key], abs(a - b) / abs(b))
+        worst["weights"] = max(worst["weights"], max(
+            (w.cpu() - pair[1].decoder.weights[k]).abs().max().item()
+            for k, w in pair[0].decoder.weights.items()))
+    print(f"  card vs CPU, {ZOO_ENTRY} recipe, B={TR_CPU_B} numpy batch, 2 "
+          f"steps: relative |d| loss {worst['loss']:.3g}, accuracy "
+          f"{worst['acc']:.3g}, gradient norm {worst['gnorm']:.3g}; weights "
+          f"max |d| {worst['weights']:.3g} (tolerances {TR_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(worst[k] > TR_TOL[k] for k in worst):
+        raise AssertionError(f"card and CPU steps disagree: {worst}")
+    del pair, fresh
+
+    # the gradient analyzer through torch.func.vmap, on the trained flooding
+    # decoder; four norms recomputed one frame at a time
+    an = lt.GradientExplosionAnalyzer(decs["flooding"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = an.analyze(**TR_ANALYZE)
+    torch.cuda.synchronize()
+    a_secs = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(0)  # analyze()'s draw
+    llr = lt.awgn_llr(gen, torch.zeros((TR_ANALYZE["num_samples"],
+                                        decs["flooding"].code.n),
+                                       device=dev), TR_ANALYZE["snr_db"])
+    joint = np.asarray(res["posterior_joint"]["norms"])
+    final = np.asarray(res["final_only"]["norms"])
+    single = []
+    t0 = time.perf_counter()
+    for i in range(4):
+        w = {k: v.clone().requires_grad_(True)
+             for k, v in decs["flooding"].weights.items()}
+        loss, _ = lt.posterior_joint_loss(
+            w, llr[i:i + 1], torch.zeros_like(llr[i:i + 1]),
+            decoder=decs["flooding"], joint=True)
+        gs = torch.autograd.grad(loss, list(w.values()))
+        single.append(float(torch.sqrt(sum((g ** 2).sum() for g in gs))))
+    rel = np.abs(joint[:4] - single) / np.abs(single)
+    print(f"  analyzer (vmap) {TR_ANALYZE}: {a_secs:.2f} s (joint and "
+          f"final-only); joint mean {res['posterior_joint']['mean']:.4g}, "
+          f"max {res['posterior_joint']['max']:.4g}; final-only mean "
+          f"{res['final_only']['mean']:.4g}, max "
+          f"{res['final_only']['max']:.4g}; frames 0-3 one at a time "
+          f"({time.perf_counter() - t0:.1f} s): relative |d| "
+          f"{rel.max():.3g}  [{card}]")
+    if not (np.isfinite(joint).all() and np.isfinite(final).all()
+            and len(joint) == TR_ANALYZE["num_samples"]
+            and rel.max() <= TR_TOL["norms"]):
+        raise AssertionError("analyzer norms are not finite or disagree "
+                             "with single frames")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"training launched a kernel: {counts}")
+    print(f"  K1/K4/K5/K6 launches while training: {counts}")
+
+    # the trained weights through the kernels: K4 and K1 vs their plain
+    # versions on 256 frames at 6.5 dB (comparison launches, not counted)
+    errs = {}
+    t0 = time.perf_counter()
+    for name, flooding in (("flooding", True), ("layered", False)):
+        twin = dataclasses.replace(decs[name], qc_options=dict(
+            fused=True, dtype=torch.bfloat16))
+        x = lt.awgn_llr(gen, torch.zeros((256, twin.code.n), device=dev),
+                        6.5)
+        errs[name] = compare(f"trained {name}", twin, x, torch.bfloat16,
+                             False, flooding=flooding)
+    print(f"  K4 and K1 on the trained weights: "
+          f"{time.perf_counter() - t0:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main():
@@ -1141,6 +1365,8 @@ def main():
     phase9(dev, card)
     torch.cuda.empty_cache()
     phase10(dev, card)
+    torch.cuda.empty_cache()
+    phase11(dev, card)
 
     print(card)
     k4 = k4_times[SIM_WAVE]

@@ -7,9 +7,12 @@ layered and flooding decodes (hand-written CUDA kernels, each with a plain
 PyTorch version for CPU tensors), the QC engines and the general,
 layered and degree-bucketed engines for any code as torch ops, the
 flooding QC decode through one kernel per base row and column, the
-two-checkpoint early exit, the pretrained-decoder zoo and the Monte-Carlo
-simulator. Decoders and simulations run on the card unless given
-``device="cpu"``. ROADMAP.md lists what is still to come.
+two-checkpoint early exit, the pretrained-decoder zoo, the Monte-Carlo
+simulator, and training: the straight-through quantizers, autograd
+through every engine, the posterior-joint trainer, the gradient analyzer
+and trainer checkpoints. Decoders, simulations and trainers run on the
+card unless given ``device="cpu"``. ROADMAP.md lists what is still to
+come.
 """
 
 from ldpc_tpu_torch.codes import (
@@ -36,11 +39,19 @@ from ldpc_tpu_torch.codes import (
 )
 from ldpc_tpu_torch.channel import awgn_llr, bpsk_modulate, puncture_llr
 from ldpc_tpu_torch.quantizer import (
+    NonUniformQuantizer,
+    dequantize,
     phase_schedule,
     power_qdq,
+    power_qdq_ste,
     power_thresholds,
+    qdq_ste,
+    quantize,
+    quantize_dequantize,
     staircase_qdq,
+    staircase_qdq_ste,
     uniform_qdq,
+    uniform_qdq_ste,
 )
 from ldpc_tpu_torch.decode import (
     BucketedGraph,
@@ -76,6 +87,12 @@ from ldpc_tpu_torch.sim import (
     SimulationResult,
     create_test_decoders,
     simulate_single_snr,
+)
+from ldpc_tpu_torch.train import (
+    GradientExplosionAnalyzer,
+    PosteriorJointTrainer,
+    TrainingConfig,
+    posterior_joint_loss,
 )
 from ldpc_tpu_torch.zoo import list_pretrained, load_pretrained, save_pretrained
 

@@ -12,10 +12,12 @@ per-iteration gathers are the two ``[E, B]`` permutations between the
 orders. ``BucketedGraph`` and ``build_bucketed_graph`` are numpy copies.
 
 :func:`bucketed_decode_batch` runs as plain PyTorch ops on ``llr``'s
-device, forward only. Its semantics are ``decode_batch``'s, with the
-``check_every`` freezing granularity; a node's messages are added one by
-one in slot order, as in the general engine, so in float32 the two give
-the same results (up to the sign of a zero sum). ``dtype`` is the message
+device, differentiable with respect to the weights (``ste`` and
+``return_trajectory`` as in ``engine.decode_batch``). Its semantics are
+``decode_batch``'s, with the ``check_every`` freezing granularity; a
+node's messages are added one by one in slot order, as in the general
+engine, so in float32 the two give the same results (up to the sign of a
+zero sum). ``dtype`` is the message
 state's storage type, bf16 or f32: the state is rounded to it only at the
 two ``[E, B]`` permutations, and all arithmetic runs in float32.
 """
@@ -146,13 +148,15 @@ def bucketed_decode_batch(
     bg: BucketedGraph,
     spec: VariantSpec,
     max_iterations: int,
+    ste: bool = False,
+    return_trajectory: bool = False,
     check_every: int = 1,
     dtype: torch.dtype = torch.float32,
 ) -> DecodeResult:
-    """Flooding decode via degree buckets, forward only; contract ==
-    ``decode_batch`` with ``check_every`` freezing granularity (the
-    syndrome is checked, and outputs frozen, after every chunk of that
-    many iterations; it must divide T).
+    """Flooding decode via degree buckets; contract == ``decode_batch``
+    with ``check_every`` freezing granularity (the syndrome is checked,
+    and outputs frozen, after every chunk of that many iterations; it must
+    divide T), which does not thin the trajectory.
 
     ``dtype`` is the message-state storage type, bf16 or f32 (fp16 cannot
     hold the quantizer's 1e-30 sign floor): the check-node output and the
@@ -221,9 +225,10 @@ def bucketed_decode_batch(
         return torch.cat(v2c_parts), post
 
     freeze = _Freeze(llr_s)
+    traj = [] if return_trajectory else None
     for t in range(T):
-        qdq = _qdq_at(spec, tabs, t, False, False)
-        vqdq = _qdq_at(spec, tabs, t, True, False)
+        qdq = _qdq_at(spec, tabs, t, False, False, ste)
+        vqdq = _qdq_at(spec, tabs, t, True, False, ste)
         c2v_vn = cn_update(v2c_cn, t, qdq).to(dtype).index_select(
             0, g["cn_to_vn"])
         v2c_vn, post_s = vn_update(c2v_vn, t, vqdq)
@@ -231,6 +236,8 @@ def bucketed_decode_batch(
         if (t + 1) % check_every == 0:
             freeze.check(post_s, _parity_ok(post_s < 0, g["syn"], graph.m),
                          t)
+        if traj is not None:
+            traj.append(post_s.index_select(0, g["var_rank"]).T)
     # sorted -> real variable order
     freeze.post = freeze.post.index_select(0, g["var_rank"])
-    return freeze.result(graph.n)
+    return freeze.result(graph.n, traj)

@@ -10,8 +10,7 @@ and variant transform, the QC syndrome and the convergence freezing.
 
 :func:`decode_batch` (flooding) and :func:`decode_batch_layered` are the
 JAX package's general engines as plain PyTorch ops on whatever device the
-LLRs are on, forward only (the ``ste``/``return_trajectory`` training
-calls wait for ``train/``). Layout ``[E, B]`` for edge messages and
+LLRs are on. Layout ``[E, B]`` for edge messages and
 ``[m, max_dc, B]`` for the check slots, batch innermost; the graph's
 index tables go to the device once per (graph, device). Every sum runs in
 a fixed order, one add at a time in slot order, so the card gives the
@@ -19,6 +18,18 @@ CPU's bits and the flooding engine the bucketed engine's
 (``bucketed_engine.py``); the check-node minimum and argmin are
 ``torch.amin``/``torch.argmin``, which, as ``jnp.min``/``jnp.argmin``,
 return a NaN as the minimum and the first NaN's index.
+
+Training. Every engine takes ``ste`` (the quantizers' straight-through
+twins, ``quantizer.*_ste``) and ``return_trajectory`` (every iteration's
+unfrozen posterior, after the V2C quantizer, as ``posteriors_all``
+[T, B, n]), and autograd differentiates it with respect to the weight
+tables as ``jax.grad`` differentiates ``ldpc_tpu``'s: the ties of a
+minimum split the gradient evenly (``amin``, ``torch.minimum``), ``|x|``
+has JAX's derivative +1 at x = +-0 (:func:`jax_abs`; torch's is 0, and a
+punctured position's message is exactly 0) and the offset kinds' ``relu``
+has derivative 0 at 0. Where the gradient is taken, no engine writes into
+a buffer in place, so ``torch.func.vmap`` of ``torch.func.grad`` runs
+through it too (the gradient analyzer's per-sample norms).
 """
 
 from __future__ import annotations
@@ -31,10 +42,13 @@ import numpy as np
 import torch
 
 from ldpc_tpu_torch.codes import DecoderGraph
-from ldpc_tpu_torch.quantizer import power_qdq, staircase_qdq, uniform_qdq
+from ldpc_tpu_torch.quantizer import (power_qdq, power_qdq_ste,
+                                      staircase_qdq, staircase_qdq_ste,
+                                      uniform_qdq, uniform_qdq_ste)
 
 __all__ = ["VariantSpec", "DecodeResult", "qdq_mode", "make_qdq",
-           "make_layers", "decode_batch", "decode_batch_layered"]
+           "make_layers", "decode_batch", "decode_batch_layered",
+           "jax_abs"]
 
 # device copies of a spec's tables, per (T, NB, device), and of a general
 # graph's index tables, per device (and per layering); an entry goes when
@@ -109,12 +123,14 @@ def qdq_mode(qparams, levels: int, closed: bool = False) -> str:
     return "staircase"
 
 
-def make_qdq(spec: VariantSpec, x: dict, v2c: bool, closed: bool = False):
+def make_qdq(spec: VariantSpec, x: dict, v2c: bool, closed: bool = False,
+             ste: bool = False):
     """This iteration's quantize-dequantize callable, or None.
 
     ``x`` holds the iteration's rows of the tables: ``thr``/``vthr`` ([L]
     float32 tensors) and ``qp``/``vqp`` ([2] float32 tensors, (C, gamma)).
-    ``closed`` adds to ``spec.closed_qdq`` (the fused kernels' option)."""
+    ``closed`` adds to ``spec.closed_qdq`` (the fused kernels' option);
+    ``ste`` picks the straight-through twin of the same form."""
     if v2c:
         if spec.v2c_qparams is None and spec.v2c_thresholds is None:
             return None
@@ -127,10 +143,13 @@ def make_qdq(spec: VariantSpec, x: dict, v2c: bool, closed: bool = False):
                                     x["thr"], x["qp"])
     mode = qdq_mode(qparams, levels, closed or spec.closed_qdq)
     if mode == "uniform":
-        return lambda v: uniform_qdq(v, qp[0], levels)
+        f = uniform_qdq_ste if ste else uniform_qdq
+        return lambda v: f(v, qp[0], levels)
     if mode == "power":
-        return lambda v: power_qdq(v, qp[0], qp[1], levels)
-    return lambda v: staircase_qdq(v, thr)
+        f = power_qdq_ste if ste else power_qdq
+        return lambda v: f(v, qp[0], qp[1], levels)
+    f = staircase_qdq_ste if ste else staircase_qdq
+    return lambda v: f(v, thr)
 
 
 def make_layers(graph: DecoderGraph, num_layers: Optional[int] = None):
@@ -212,9 +231,43 @@ def _tables(weights, spec: VariantSpec, T: int, NB: int, device) -> dict:
                 **{k: c[k] for k in ("thr", "qp", "vthr", "vqp")})
 
 
-def _qdq_at(spec, tabs, t, v2c, closed):
+def _qdq_at(spec, tabs, t, v2c, closed, ste=False):
     x = {k: tabs[k][t] for k in ("thr", "qp", "vthr", "vqp")}
-    return make_qdq(spec, x, v2c=v2c, closed=closed)
+    return make_qdq(spec, x, v2c=v2c, closed=closed, ste=ste)
+
+
+class _JaxAbs(torch.autograd.Function):
+    """``|x|`` whose derivative is JAX's: +1 for x >= 0 (so at +-0 too)
+    and -1 below (``torch.abs``'s is 0 at 0)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return x.abs()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def jax_abs(x: torch.Tensor) -> torch.Tensor:
+    """``x.abs()``, with JAX's derivative where a gradient is taken."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _JaxAbs.apply(x)
+    return x.abs()
+
+
+def _differentiable(*tensors) -> bool:
+    """True where autograd (or ``torch.func.grad``) tracks one of
+    ``tensors``: the engines then write no buffer in place."""
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in tensors)
 
 
 def _min_tree(xs):
@@ -223,7 +276,7 @@ def _min_tree(xs):
     inf = float("inf")
     for k, xk in enumerate(xs):
         negk = (xk < 0).to(torch.int32)
-        mk = xk.abs()
+        mk = jax_abs(xk)
         if k == 0:
             min1, min2 = mk, torch.full_like(mk, inf)
             argm = torch.zeros(mk.shape, dtype=torch.int32, device=mk.device)
@@ -254,7 +307,7 @@ def _transform(spec, qdq, bb, ab, loo_sign, loo_mag):
         return qdq(loo_sign * loo_mag)
     if spec.kind == "wrcq":
         return qdq(bb * loo_sign * loo_mag)
-    off = torch.clamp_min(loo_mag - bb, 0.0)  # oms, orcq
+    off = torch.relu(loo_mag - bb)  # oms, orcq: derivative 0 at 0
     if spec.alpha_in_cn:
         off = off - ab
     out = loo_sign * off
@@ -271,9 +324,9 @@ def _syndrome_ok(post, qc, lift_dim: int = -1):
     for blocks in qc.row_blocks:
         par = torch.zeros_like(fail)
         for b in blocks:
-            par ^= torch.roll(neg[int(qc.block_col[b])],
-                              -int(qc.block_shift[b]), dims=lift_dim)
-        fail |= par
+            par = par ^ torch.roll(neg[int(qc.block_col[b])],
+                                   -int(qc.block_shift[b]), dims=lift_dim)
+        fail = fail | par
     return ~fail.any(dim=lift_dim)
 
 
@@ -294,10 +347,15 @@ class _Freeze:
         self.iters = self.iters.masked_fill(~self.done, t_last + 1)
         self.done = self.done | ok
 
-    def result(self, n: int) -> DecodeResult:
+    def result(self, n: int, trajectory=None) -> DecodeResult:
+        """The decode's result; ``trajectory`` (a list of the iterations'
+        posteriors, each [B, n]) becomes ``posteriors_all`` [T, B, n]."""
         post = self.post.reshape(n, self.post.shape[-1]).T.contiguous()
-        return DecodeResult(bits=(post < 0).to(torch.int32), posterior=post,
-                            iterations=self.iters, success=self.done)
+        return DecodeResult(
+            bits=(post < 0).to(torch.int32), posterior=post,
+            iterations=self.iters, success=self.done,
+            posteriors_all=(None if trajectory is None
+                            else torch.stack(trajectory)))
 
 
 # -- the general engines: padded slot tables of a DecoderGraph --------------
@@ -340,7 +398,7 @@ def _cn_loo(msgs, mask, iota, min2_where_inf: bool):
     and the first NaN the argmin, as in ``jnp.min``/``jnp.argmin``.
     Degree-1 rows take min2 = min1; the general engine also where min2 is
     infinite (``min2_where_inf``), the bucketed engine only there."""
-    mag = msgs.abs()
+    mag = jax_abs(msgs)
     neg = msgs < 0
     if mask is not None:
         mag = torch.where(mask, mag, _INF)
@@ -414,13 +472,16 @@ def decode_batch(
     graph: DecoderGraph,
     spec: VariantSpec,
     max_iterations: int,
+    ste: bool = False,
+    return_trajectory: bool = False,
 ) -> DecodeResult:
     """Flooding-schedule batched decode of ``llr`` [B, n] over a general
-    Tanner graph, forward only, in float32 on ``llr``'s device. Early exit
-    is realized as output freezing (the syndrome is checked after every
-    iteration), so ``iterations`` is the first converged iteration + 1, or
-    T. Returns int32 bits, the float32 posterior, iterations and
-    success."""
+    Tanner graph, in float32 on ``llr``'s device. Early exit is realized
+    as output freezing (the syndrome is checked after every iteration), so
+    ``iterations`` is the first converged iteration + 1, or T. Returns
+    int32 bits, the float32 posterior, iterations and success, and with
+    ``return_trajectory`` every iteration's posterior [T, B, n]
+    (differentiable; ``ste`` puts the straight-through quantizers in)."""
     _check_llr_general(llr, graph)
     T, dev = max_iterations, llr.device
     g = _general_tables(graph, dev)
@@ -429,15 +490,18 @@ def decode_batch(
     llr_e = llr_T.index_select(0, g["edge_var"])           # [E, B]
     v2c = llr_e
     freeze = _Freeze(llr_T)
+    traj = [] if return_trajectory else None
     for t in range(T):
-        qdq = _qdq_at(spec, tabs, t, False, False)
-        vqdq = _qdq_at(spec, tabs, t, True, False)
+        qdq = _qdq_at(spec, tabs, t, False, False, ste)
+        vqdq = _qdq_at(spec, tabs, t, True, False, ste)
         beta, alpha = tabs["beta"][t], tabs["alpha"][t]
         c2v = _cn_update(v2c, g, graph, spec, beta, alpha, qdq)
         v2c, post = _vn_update(c2v, llr_T, llr_e, g, spec, alpha, vqdq)
         freeze.check(post, _parity_ok(post < 0, g["cn_var_slots"], graph.m),
                      t)
-    return freeze.result(graph.n)
+        if traj is not None:
+            traj.append(post.T)
+    return freeze.result(graph.n, traj)
 
 
 def _layer_tables(graph: DecoderGraph, layer_checks: np.ndarray,
@@ -495,14 +559,19 @@ def decode_batch_layered(
     graph: DecoderGraph,
     spec: VariantSpec,
     max_iterations: int,
+    ste: bool = False,
+    return_trajectory: bool = False,
 ) -> DecodeResult:
-    """Layered-schedule batched decode over a general Tanner graph, forward
-    only, in float32 on ``llr``'s device: a persistent per-edge c2v memory
-    and per-variable column sums, updated layer by layer. Each layer forms
+    """Layered-schedule batched decode over a general Tanner graph, in
+    float32 on ``llr``'s device: a persistent per-edge c2v memory and
+    per-variable column sums, updated layer by layer. Each layer forms
     fresh v2c from the current sums, ``llr + alpha * (colsum - old)``, runs
     the check-node update and folds ``new - old`` back into the sums. At
     each iteration's end the V2C quantizer applies to the posterior
-    ``llr + colsum`` and the syndrome is checked."""
+    ``llr + colsum`` and the syndrome is checked. ``ste`` and
+    ``return_trajectory`` as in :func:`decode_batch`; where a gradient is
+    taken the sums and the c2v memory are replaced, not written in
+    place."""
     _check_llr_general(llr, graph)
     T, dev = max_iterations, llr.device
     E, B = graph.num_edges, llr.shape[0]
@@ -515,9 +584,17 @@ def decode_batch_layered(
     c2v_ext = torch.zeros((E + 1, B), dtype=torch.float32, device=dev)
     colsum_ext = torch.zeros_like(llr_ext)
     freeze = _Freeze(llr_T)
+    traj = [] if return_trajectory else None
+    functional = _differentiable(llr, *weights.values())
+
+    def put(buf, index, src):
+        if functional:
+            return buf.index_copy(0, index, src)
+        return buf.index_copy_(0, index, src)
+
     for t in range(T):
-        qdq = _qdq_at(spec, tabs, t, False, False)
-        vqdq = _qdq_at(spec, tabs, t, True, False)
+        qdq = _qdq_at(spec, tabs, t, False, False, ste)
+        vqdq = _qdq_at(spec, tabs, t, True, False, ste)
         beta_ext, alpha_ext = _pad(tabs["beta"][t]), _pad(tabs["alpha"][t])
         for lay in layers:
             slots, mask = lay["slots"], lay["mask"]
@@ -539,13 +616,15 @@ def decode_batch_layered(
                                                loo_mag), 0.0).view(-1, B)
             delta = new - old.view(-1, B)
             for pos, var in lay["rounds"]:
-                colsum_ext.index_copy_(0, var, colsum_ext.index_select(
+                colsum_ext = put(colsum_ext, var, colsum_ext.index_select(
                     0, var) + delta.index_select(0, pos))
-            c2v_ext.index_copy_(0, lay["edges"],
-                                new.index_select(0, lay["pos"]))
+            c2v_ext = put(c2v_ext, lay["edges"],
+                          new.index_select(0, lay["pos"]))
         post = llr_T + colsum_ext[:-1]
         if vqdq is not None:
             post = vqdq(post)
         freeze.check(post, _parity_ok(post < 0, g["cn_var_slots"], graph.m),
                      t)
-    return freeze.result(graph.n)
+        if traj is not None:
+            traj.append(post.T)
+    return freeze.result(graph.n, traj)

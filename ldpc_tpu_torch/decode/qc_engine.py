@@ -7,11 +7,13 @@ along block ``b``.
 
 :func:`qc_decode_batch` (flooding) and :func:`qc_decode_batch_layered` are
 the JAX package's XLA engines as plain PyTorch ops on whatever device the
-LLRs are on, forward only (the ``ste``/``return_trajectory`` training
-calls wait for ``train/``). The layout is JAX's: channel LLRs
-``llr_T[nb, lift, B]`` and the variable-aligned message state
-``[NB, lift, B]``, batch innermost; ``roll(x, -shift(b))`` along the lift
-aligns block ``b``'s variables to its checks. Each function rounds where
+LLRs are on, differentiable with respect to the weights (``ste`` and
+``return_trajectory`` as in ``engine.decode_batch``). The layout is
+JAX's: channel LLRs ``llr_T[nb, lift, B]`` and the variable-aligned
+message state, one ``[lift, B]`` tile per block (kept as a list of tiles,
+so no buffer is written in place), batch innermost; ``roll(x,
+-shift(b))`` along the lift aligns block ``b``'s variables to its
+checks. Each function rounds where
 its JAX counterpart does under JAX's type promotion: a storage-type
 (``dtype``) operation is a float32 operation rounded to ``dtype``, a
 float32 weight or quantizer promotes to float32, and every check-node
@@ -154,17 +156,21 @@ def qc_decode_batch(
     qc: QCGraph,
     spec: VariantSpec,
     max_iterations: int,
+    ste: bool = False,
+    return_trajectory: bool = False,
     check_every: int = 1,
     dtype: torch.dtype = torch.float32,
     unroll: bool = False,
 ) -> DecodeResult:
-    """Flooding decode over the QC structure, forward only.
+    """Flooding decode over the QC structure.
 
     ``check_every``: the syndrome is checked (and outputs frozen) after
     every chunk of that many iterations; it must divide T. ``dtype``: the
     message and posterior storage type, bf16 or f32. ``unroll`` (XLA
     tuning) is accepted and ignored. Returns int32 bits, the posterior in
-    ``dtype``, per-frame iterations and success."""
+    ``dtype``, per-frame iterations and success; with ``return_trajectory``
+    also every iteration's posterior [T, B, n] (``check_every`` does not
+    thin it)."""
     T = max_iterations
     if T % check_every:
         raise ValueError(f"check_every={check_every} must divide T={T}")
@@ -173,11 +179,11 @@ def qc_decode_batch(
     tabs = _tables(weights, spec, T, qc.num_blocks, dev)
     shifts = [int(s) for s in qc.block_shift]
     f32 = torch.float32
-    v2c = llr_T.index_select(0, _graph_tables(qc, dev)["block_col"])
+    v2c = [llr_T[int(c)] for c in qc.block_col]
 
     def iteration(v2c, t):
-        qdq = _qdq_at(spec, tabs, t, False, False)
-        vqdq = _qdq_at(spec, tabs, t, True, False)
+        qdq = _qdq_at(spec, tabs, t, False, False, ste)
+        vqdq = _qdq_at(spec, tabs, t, True, False, ste)
         beta, alpha = tabs["beta"][t], tabs["alpha"][t]
         # check-node update, per base row, in float32
         c2v = [None] * qc.num_blocks
@@ -191,7 +197,7 @@ def qc_decode_batch(
                                  loo_mag)
                 c2v[b] = torch.roll(out.to(dtype), shifts[b], dims=0)
         # variable-node update, per base column: sums in dtype
-        new = torch.empty_like(v2c)
+        new = [None] * qc.num_blocks
         posts = []
         for j, blocks in enumerate(qc.col_blocks):
             colsum = c2v[blocks[0]]
@@ -204,18 +210,21 @@ def qc_decode_batch(
                     nv = llr_T[j] + ext
                 else:  # the float32 weight promotes the sum to float32
                     nv = llr_T[j].to(f32) + alpha[b] * ext.to(f32)
-                new[b] = vqdq(nv) if vqdq is not None else nv
+                new[b] = (vqdq(nv) if vqdq is not None else nv).to(dtype)
         post = torch.stack(posts)
         if vqdq is not None:
             post = vqdq(post).to(dtype)
         return new, post
 
     freeze = _Freeze(llr_T)
+    traj = [] if return_trajectory else None
     for t in range(T):
         v2c, post = iteration(v2c, t)
         if (t + 1) % check_every == 0:
             freeze.check(post, _syndrome_ok(post, qc, lift_dim=0), t)
-    return freeze.result(qc.n)
+        if traj is not None:
+            traj.append(post.reshape(qc.n, -1).T)
+    return freeze.result(qc.n, traj)
 
 
 def qc_decode_batch_layered(
@@ -225,16 +234,19 @@ def qc_decode_batch_layered(
     qc: QCGraph,
     spec: VariantSpec,
     max_iterations: int,
+    ste: bool = False,
+    return_trajectory: bool = False,
     dtype: torch.dtype = torch.float32,
 ) -> DecodeResult:
-    """Layered-schedule QC decode, forward only: base rows are the layers.
+    """Layered-schedule QC decode: base rows are the layers.
 
     A persistent per-block c2v memory and per-column sums in ``dtype``;
     row by row, fresh v2c messages are formed from the current sums, run
     through the check-node update, and folded back as
     ``colsum + (new - old)`` (the difference rounded first). The V2C
     quantizer applies to the posterior at each iteration's end; the
-    syndrome is checked after every iteration."""
+    syndrome is checked after every iteration. ``ste`` and
+    ``return_trajectory`` as in :func:`qc_decode_batch`."""
     T = max_iterations
     llr_T = _storage(llr, qc, dtype)
     dev = llr.device
@@ -242,14 +254,15 @@ def qc_decode_batch_layered(
     shifts = [int(s) for s in qc.block_shift]
     cols = [int(c) for c in qc.block_col]
     f32 = torch.float32
-    c2v = torch.zeros((qc.num_blocks,) + llr_T.shape[1:], dtype=dtype,
-                      device=dev)
-    colsum = torch.zeros_like(llr_T)
+    zero = torch.zeros(llr_T.shape[1:], dtype=dtype, device=dev)
+    c2v = [zero] * qc.num_blocks
+    colsum = [zero] * qc.nb
     freeze = _Freeze(llr_T)
+    traj = [] if return_trajectory else None
 
     for t in range(T):
-        qdq = _qdq_at(spec, tabs, t, False, False)
-        vqdq = _qdq_at(spec, tabs, t, True, False)
+        qdq = _qdq_at(spec, tabs, t, False, False, ste)
+        vqdq = _qdq_at(spec, tabs, t, True, False, ste)
         beta, alpha = tabs["beta"][t], tabs["alpha"][t]
         for blocks in qc.row_blocks:
             xs = []
@@ -270,8 +283,10 @@ def qc_decode_batch_layered(
                 j = cols[b]
                 colsum[j] = colsum[j] + (new - c2v[b])
                 c2v[b] = new
-        post = llr_T + colsum
+        post = llr_T + torch.stack(colsum)
         if vqdq is not None:
             post = vqdq(post).to(dtype)
         freeze.check(post, _syndrome_ok(post, qc, lift_dim=0), t)
-    return freeze.result(qc.n)
+        if traj is not None:
+            traj.append(post.reshape(qc.n, -1).T)
+    return freeze.result(qc.n, traj)

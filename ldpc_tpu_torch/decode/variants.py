@@ -38,9 +38,12 @@ Every inference route is ported:
   (``decode/bucketed_engine.py``) with ``dtype`` and ``check_every`` from
   ``qc_options``.
 
-Each runs on the device of the LLRs it is given. The training calls
-(``ste``/``return_trajectory``) raise ``NotImplementedError`` naming the
-ROADMAP.md Queue 1 item that will port them (``train/``).
+Each runs on the device of the LLRs it is given. A training call
+(``ste`` or ``return_trajectory``) takes the route ``ldpc_tpu`` takes: a
+fused decoder falls back to its engine (the kernels are inference-only),
+the QC flooding engine runs in float32 with the syndrome checked every
+iteration (it drops every option but ``unroll``), the QC layered engine
+in float32, and the bucketed engine in float32 with its ``check_every``.
 """
 
 from __future__ import annotations
@@ -187,10 +190,14 @@ class Decoder:
         if squeeze:
             llr = llr[None, :]
         opts = dict(self.qc_options or {})
-        if ste or return_trajectory:
-            raise _not_ported("training calls (ste / return_trajectory) "
-                              "and the STE quantizers", "train/")
         fused = opts.pop("fused", False)
+        train = dict(ste=ste, return_trajectory=return_trajectory)
+        if ste or return_trajectory:
+            # the training route: per-iteration semantics in float32 on
+            # the engines (ldpc_tpu/decode/variants.py:170-240)
+            fused = False
+            opts = {k: v for k, v in opts.items() if k == "unroll" or (
+                k == "check_every" and self.bucketed_graph is not None)}
         if self.layered and self.qc is not None:
             if fused:
                 from ldpc_tpu_torch.decode.fused import \
@@ -203,11 +210,11 @@ class Decoder:
             else:  # the engine takes no options: f32 messages
                 out = qc_decode_batch_layered(
                     llr, w, qc=self.qc, spec=self.spec,
-                    max_iterations=self.max_iterations)
+                    max_iterations=self.max_iterations, **train)
         elif self.layered:
             out = decode_batch_layered(
                 llr, w, self.layer_checks, graph=self.graph, spec=self.spec,
-                max_iterations=self.max_iterations)
+                max_iterations=self.max_iterations, **train)
         elif self.qc is not None and fused:
             from ldpc_tpu_torch.decode.fused import qc_fused_decode_batch
             # the kernel checks the syndrome once, at T
@@ -226,22 +233,25 @@ class Decoder:
                 opts.pop(key, None)
             out = qc_decode_batch(
                 llr, w, qc=self.qc, spec=self.spec,
-                max_iterations=self.max_iterations, **opts)
+                max_iterations=self.max_iterations, **train, **opts)
         elif self.bucketed_graph is not None:
             out = bucketed_decode_batch(
                 llr, w, bg=self.bucketed_graph, spec=self.spec,
-                max_iterations=self.max_iterations,
+                max_iterations=self.max_iterations, **train,
                 **{k: opts[k] for k in ("dtype", "check_every")
                    if k in opts})
         else:
             out = decode_batch(llr, w, graph=self.graph, spec=self.spec,
-                               max_iterations=self.max_iterations)
+                               max_iterations=self.max_iterations, **train)
         if squeeze:
             out = DecodeResult(
                 bits=out.bits[0],
                 posterior=(out.posterior[0]
                            if out.posterior is not None else None),
-                iterations=out.iterations[0], success=out.success[0])
+                iterations=out.iterations[0], success=out.success[0],
+                posteriors_all=(out.posteriors_all[:, 0]
+                                if out.posteriors_all is not None
+                                else None))
         return out
 
     def decode(self, llr: torch.Tensor):

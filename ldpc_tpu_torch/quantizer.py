@@ -12,11 +12,17 @@ largest ``tau_j <= |x|`` (inclusive compare), the sign is kept, and the
 reconstructed magnitude is floored at ``QDQ_SIGN_TINY`` so a negative
 dead-zone value keeps its sign through every ``< 0`` consumer.
 
-The straight-through (training) variants are not ported yet.
+The straight-through (training) variants copy JAX's expression and its
+derivative rules exactly: the forward is ``clipped + (qdq(x) - clipped)``
+evaluated in float32 (NOT ``qdq(x)``: where ``qdq`` gives the +-1e-30
+floor and ``|x|`` is larger, the sum rounds to an exact 0.0), and the clip
+to [-C, C] is ``minimum(maximum(x, -C), C)``, whose derivative at a tie is
+one half, as ``jnp.clip``'s (``torch.clamp`` passes the whole gradient).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -24,11 +30,19 @@ import torch
 
 __all__ = [
     "QDQ_SIGN_TINY",
+    "NonUniformQuantizer",
     "power_thresholds",
     "power_thresholds_for_levels",
+    "quantize",
+    "dequantize",
+    "quantize_dequantize",
+    "qdq_ste",
     "staircase_qdq",
+    "staircase_qdq_ste",
     "uniform_qdq",
+    "uniform_qdq_ste",
     "power_qdq",
+    "power_qdq_ste",
     "phase_schedule",
     "stack_quantizer_params",
     "stack_quantizer_thresholds",
@@ -94,6 +108,77 @@ def _pow(a: torch.Tensor, e) -> torch.Tensor:
                                         device=a.device))
 
 
+def _lut(thresholds, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(thresholds, dtype=torch.float32, device=like.device)
+
+
+def _threshold_index(mag: torch.Tensor, thresholds: torch.Tensor
+                     ) -> torch.Tensor:
+    """Largest ``j`` with ``tau_j <= mag`` (the reference's inclusive
+    ``>=`` scan), int64: a binary search for a rank-1 LUT, a compare-count
+    for per-element LUT rows ``[..., L]``."""
+    if thresholds.ndim == 1:
+        idx = torch.searchsorted(thresholds, mag.contiguous(), right=True) - 1
+    else:
+        idx = (mag[..., None] >= thresholds).sum(dim=-1) - 1
+    return torch.clamp_min(idx, 0)
+
+
+def _snap(thresholds: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if thresholds.ndim == 1:
+        return thresholds[idx]
+    return torch.take_along_dim(thresholds, idx[..., None], dim=-1)[..., 0]
+
+
+def quantize(x: torch.Tensor, thresholds) -> torch.Tensor:
+    """Sign-magnitude quantize against a threshold LUT ``[..., L]``
+    (L = 2^(bc-1)): int32 codes ``(x < 0) * L + idx`` in [0, 2^bc)
+    (reference ``rcq_decoder.py:59-91``)."""
+    thr = _lut(thresholds, x)
+    idx = _threshold_index(x.abs(), thr).to(torch.int32)
+    return (x < 0).to(torch.int32) * thr.shape[-1] + idx
+
+
+def dequantize(code: torch.Tensor, thresholds) -> torch.Tensor:
+    """Invert :func:`quantize`: the threshold value with its sign
+    (reference ``rcq_decoder.py:93-121``), float32."""
+    thr = _lut(thresholds, code)
+    levels = thr.shape[-1]
+    sign_bit = (code >= levels).to(torch.float32)
+    return (1.0 - 2.0 * sign_bit) * _snap(thr, (code % levels).long())
+
+
+def quantize_dequantize(x: torch.Tensor, thresholds) -> torch.Tensor:
+    """``dequantize(quantize(x))`` without the integer codes, with the
+    reconstructed magnitude floored at ``QDQ_SIGN_TINY`` (so a negative
+    dead-zone value stays negative)."""
+    thr = _lut(thresholds, x)
+    snapped = torch.clamp_min(_snap(thr, _threshold_index(x.abs(), thr)),
+                              QDQ_SIGN_TINY)
+    return torch.where(x < 0, -1.0, 1.0) * snapped
+
+
+def _clip(x: torch.Tensor, C) -> torch.Tensor:
+    """``jnp.clip(x, -C, C)``: its derivative is 1/2 at x = +-C."""
+    C = torch.as_tensor(C, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, -C), C)
+
+
+def _ste(x: torch.Tensor, C, qdq) -> torch.Tensor:
+    """``clipped + stop_gradient(qdq(x) - clipped)`` in float32, as JAX
+    writes it: the forward is that sum (see the module docstring), the
+    derivative that of the clip."""
+    clipped = _clip(x.to(torch.float32), C)
+    return clipped + (qdq(x.detach()) - clipped.detach())
+
+
+def qdq_ste(x: torch.Tensor, thresholds) -> torch.Tensor:
+    """Straight-through :func:`quantize_dequantize`: backward is the
+    identity clipped to the LUT's range [-C, C], C its last threshold."""
+    thr = _lut(thresholds, x)
+    return _ste(x, thr[..., -1], lambda v: quantize_dequantize(v, thr))
+
+
 def staircase_qdq(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     """Exact quantize-dequantize for small LUTs as a staircase sum:
     ``sign(x) * sum_j (|x| >= tau_j) * (tau_j - tau_{j-1})``.
@@ -149,6 +234,48 @@ def power_qdq(x: torch.Tensor, C, gamma, levels: int) -> torch.Tensor:
     idx = torch.where(mag < down, torch.clamp_min(idx - 1.0, 0.0), idx)
     snapped = torch.clamp_min(C * _pow(_div(idx, M), gamma), QDQ_SIGN_TINY)
     return torch.where(x < 0, -snapped, snapped)
+
+
+def staircase_qdq_ste(x: torch.Tensor, thresholds) -> torch.Tensor:
+    """Straight-through :func:`staircase_qdq` (see :func:`qdq_ste`)."""
+    thr = _lut(thresholds, x)
+    return _ste(x, thr[..., -1], lambda v: staircase_qdq(v, thr))
+
+
+def uniform_qdq_ste(x: torch.Tensor, C, levels: int) -> torch.Tensor:
+    """Straight-through :func:`uniform_qdq`: backward is the identity
+    clipped to [-C, C]."""
+    return _ste(x, C, lambda v: uniform_qdq(v, C, levels))
+
+
+def power_qdq_ste(x: torch.Tensor, C, gamma, levels: int) -> torch.Tensor:
+    """Straight-through :func:`power_qdq`: backward is the identity
+    clipped to [-C, C]."""
+    return _ste(x, C, lambda v: power_qdq(v, C, gamma, levels))
+
+
+@dataclasses.dataclass(frozen=True)
+class NonUniformQuantizer:
+    """(bc, C, gamma) with its LUT, the reference class surface: ``.bc``,
+    ``.C``, ``.gamma``, ``.thresholds``, ``.quantize(x)``,
+    ``.dequantize(code)`` and ``__call__`` (quantize-dequantize)."""
+
+    bc: int
+    C: float
+    gamma: float
+
+    @property
+    def thresholds(self) -> np.ndarray:
+        return power_thresholds(self.bc, self.C, self.gamma)
+
+    def quantize(self, x) -> torch.Tensor:
+        return quantize(torch.as_tensor(x), self.thresholds)
+
+    def dequantize(self, code) -> torch.Tensor:
+        return dequantize(torch.as_tensor(code), self.thresholds)
+
+    def __call__(self, x) -> torch.Tensor:
+        return quantize_dequantize(torch.as_tensor(x), self.thresholds)
 
 
 def phase_schedule(max_iterations: int, num_quantizers: int) -> np.ndarray:

@@ -208,8 +208,8 @@ def test_nan_frame_decodes_to_zero_with_success(layered):
 
 
 def test_single_vector_call_and_routes():
-    """[n] LLRs decode as one frame on every non-QC route; the training
-    calls raise naming train/."""
+    """[n] LLRs decode as one frame on every non-QC route, the training
+    calls too: their trajectory is [T, n]."""
     code = lt.create_test_ldpc_code()
     for kw in (dict(), dict(layered=True), dict(bucketed=True)):
         dec = lt.basic_min_sum(code, device="cpu", **kw)
@@ -218,8 +218,11 @@ def test_single_vector_call_and_routes():
         bits, success, iters = dec.decode(torch.full((7,), 5.0))
         assert bits.shape == (7,) and bool(success) and int(iters) == 1
         for call in (dict(ste=True), dict(return_trajectory=True)):
-            with pytest.raises(NotImplementedError, match="train/"):
-                dec(torch.full((7,), 5.0), **call)
+            got = dec(torch.full((7,), 5.0), **call)
+            assert torch.equal(got.bits, out.bits)
+            traj = got.posteriors_all
+            assert (traj is None if "ste" in call else
+                    traj.shape == (dec.max_iterations, 7))
 
 
 def test_pbrl_full_width_matches_jax():

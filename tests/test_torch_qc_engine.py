@@ -173,9 +173,14 @@ def test_decoder_route_options_and_refusals():
         lt.qc_decode_batch(llr, tdec.weights, dtype=torch.float16, **args)
     with pytest.raises(ValueError, match="columns"):
         lt.qc_decode_batch_layered(llr[:, :-1], tdec.weights, **args)
-    # training calls wait for train/
+    # a training call drops the storage type and check_every, as in
+    # ldpc_tpu: f32 messages and the syndrome every iteration
     for kw in (dict(ste=True), dict(return_trajectory=True)):
-        with pytest.raises(NotImplementedError, match="train/"):
-            tdec(llr, **kw)
+        got = bf(llr, **kw)
+        want = lt.qc_decode_batch(llr, tdec.weights, **kw, **args)
+        assert got.posterior.dtype == torch.float32
+        assert torch.equal(got.posterior, want.posterior)
+        assert torch.equal(got.iterations, want.iterations)
+        assert (got.posteriors_all is None) == ("ste" in kw)
     empty = lt.qc_decode_batch(llr[:0], tdec.weights, **args)
     assert empty.bits.shape == (0, tdec.code.n)

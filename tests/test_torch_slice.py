@@ -110,6 +110,8 @@ def test_unported_routes_refuse():
     llr = torch.zeros((2, code.n))
     fused = dict(fused=True, dtype=torch.float32)
     mk = lambda **kw: lt.make_decoder(code, kind="ms", device="cpu", **kw)
+    # the training calls (train/) run on every route, a fused decoder's on
+    # its engine
     for dec, kw in [
         (mk(layered=True), dict(ste=True)),
         (mk(bucketed=True), dict(return_trajectory=True)),
@@ -120,8 +122,11 @@ def test_unported_routes_refuse():
          dict(return_trajectory=True)),
         (mk(qc=qc, qc_options=fused), dict(ste=True)),
     ]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            dec(llr, **kw)
+        assert dec(llr, **kw).bits.shape == (2, code.n)
+    # data-parallel training waits for parallel/
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        lt.PosteriorJointTrainer(lt.neural_min_sum(code, device="cpu"),
+                                 mesh=object())
     # the QC engines and the general, layered and bucketed engines run
     # (every inference route and the simulator's compaction over the
     # engines are ported)
