@@ -2,17 +2,20 @@
 
 It imports torch and numpy and never jax; module names follow the JAX
 package so each counterpart is easy to find. Ported so far: the code model,
-the RCQ quantizers, the decoder registry, the AWGN channel, the fused
-layered and flooding decodes (hand-written CUDA kernels, each with a plain
-PyTorch version for CPU tensors), the QC engines and the general,
-layered and degree-bucketed engines for any code as torch ops, the
-flooding QC decode through one kernel per base row and column, the
-two-checkpoint early exit, the pretrained-decoder zoo, the Monte-Carlo
-simulator, and training: the straight-through quantizers, autograd
-through every engine, the posterior-joint trainer, the gradient analyzer
-and trainer checkpoints. Decoders, simulations and trainers run on the
-card unless given ``device="cpu"``. ROADMAP.md lists what is still to
-come.
+the RCQ quantizers, the decoder registry, the AWGN channel, the systematic
+encoder, the fused layered and flooding decodes (hand-written CUDA
+kernels, each with a plain PyTorch version for CPU tensors), the QC
+engines and the general, layered and degree-bucketed engines for any code
+as torch ops, the flooding QC decode through one kernel per base row and
+column, the two-checkpoint early exit, the pretrained-decoder zoo, the
+Monte-Carlo simulator and importance-sampled error floors (``sim``),
+training (the straight-through quantizers, autograd through every engine,
+the posterior-joint trainer, the gradient analyzer), the design tools
+(density evolution, ladder design, trapping sets: ``design``), reports and
+plots (``report``), checkpoints and profiling (``utils``). Decoders,
+simulations and trainers run on the card unless given ``device="cpu"``.
+What is still to come (``parallel/`` and the root scripts) is listed in
+ROADMAP.md.
 """
 
 from ldpc_tpu_torch.codes import (
@@ -37,7 +40,9 @@ from ldpc_tpu_torch.codes import (
     save_protograph,
     tanner_155_base,
 )
-from ldpc_tpu_torch.channel import awgn_llr, bpsk_modulate, puncture_llr
+from ldpc_tpu_torch.channel import (awgn_llr, bpsk_modulate, puncture_llr,
+                                    simulate_awgn_channel)
+from ldpc_tpu_torch.encode import Encoder, make_encoder
 from ldpc_tpu_torch.quantizer import (
     NonUniformQuantizer,
     dequantize,

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["bpsk_modulate", "awgn_llr", "puncture_llr"]
+__all__ = ["bpsk_modulate", "awgn_llr", "simulate_awgn_channel",
+           "puncture_llr"]
 
 
 def bpsk_modulate(bits: torch.Tensor) -> torch.Tensor:
@@ -37,6 +38,13 @@ def awgn_llr(gen: torch.Generator, codewords: torch.Tensor, snr_db,
                         device=device)
     received = symbols + torch.sqrt(noise_power) * noise
     return (2.0 * received / noise_power).to(dtype)
+
+
+def simulate_awgn_channel(gen: torch.Generator, codeword: torch.Tensor,
+                          snr_db) -> torch.Tensor:
+    """Reference-named wrapper (``ldpc_decoder.py:286``) of
+    :func:`awgn_llr`: one codeword (or a batch), an explicit generator."""
+    return awgn_llr(gen, codeword, snr_db)
 
 
 def puncture_llr(llr: torch.Tensor, positions) -> torch.Tensor:

@@ -112,7 +112,7 @@ class DecodeResult(NamedTuple):
 
 
 def qdq_mode(qparams, levels: int, closed: bool = False) -> str:
-    """The static routing of ``ldpc_tpu.decode.engine._make_qdq``:
+    """The static routing of ``ldpc_tpu/decode/engine.py::_make_qdq``:
     'uniform' (closed form, every gamma == 1), 'power' (closed form) or
     'staircase' (exact LUT). The closed form applies when (C, gamma)
     parameters exist and the LUT is large (levels > 16) or ``closed``."""
@@ -154,8 +154,8 @@ def make_qdq(spec: VariantSpec, x: dict, v2c: bool, closed: bool = False,
 
 def make_layers(graph: DecoderGraph, num_layers: Optional[int] = None):
     """Partition checks into layers for the general layered schedule
-    (numpy copy of ``ldpc_tpu.decode.engine.make_layers``): each check goes
-    to the first layer where it shares no variable with a placed check;
+    (numpy copy of ``ldpc_tpu/decode/engine.py::make_layers``): each check
+    goes to the first layer where it shares no variable with a placed check;
     past ``num_layers`` collisions go to the smallest layer. Returns
     ``layer_checks [L, m_per_layer]`` padded with ``m``."""
     m = graph.m

@@ -344,7 +344,8 @@ def make_decoder(
     closed_qdq: bool = False,
     device="cuda",
 ) -> Decoder:
-    """Build any decoder variant (arguments as ``ldpc_tpu.make_decoder``).
+    """Build any decoder variant (arguments as the JAX package's
+    ``make_decoder``).
 
     kind: 'ms' (fixed factor) | 'nms' | 'oms' | 'rcq' | 'wrcq' | 'orcq'.
     sharing_type: None/0 = per-edge; 1-4 = degree sharing. ``qc`` switches

@@ -199,7 +199,7 @@ def staircase_qdq(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
 def uniform_qdq(x: torch.Tensor, C, levels: int) -> torch.Tensor:
     """Closed-form quantize-dequantize for uniform thresholds
     ``tau_j = C*j/M`` (the gamma == 1 case), with the boundary-correction
-    selects of ``ldpc_tpu.quantizer.uniform_qdq``."""
+    selects of ``ldpc_tpu/quantizer.py::uniform_qdq``."""
     x = x.to(torch.float32)
     C = _f32(C, x)
     M = levels - 1
@@ -219,7 +219,7 @@ def power_qdq(x: torch.Tensor, C, gamma, levels: int) -> torch.Tensor:
     """Closed-form quantize-dequantize for power-law thresholds
     ``tau_j = C*(j/M)^gamma``: invert the power law, then two
     boundary-correction selects make the index exact under float rounding
-    (``ldpc_tpu.quantizer.power_qdq``)."""
+    (``ldpc_tpu/quantizer.py::power_qdq``)."""
     x = x.to(torch.float32)
     C = _f32(C, x)
     gamma = _f32(gamma, x)

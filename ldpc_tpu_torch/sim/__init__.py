@@ -1,3 +1,9 @@
+from ldpc_tpu_torch.sim.importance import (
+    FloorEstimate,
+    biased_awgn_llr,
+    estimate_event_probability,
+    estimate_trapping_floor,
+)
 from ldpc_tpu_torch.sim.montecarlo import (
     LDPCSimulator,
     SimulationConfig,

@@ -34,9 +34,10 @@ SNR index), so a resumed sweep gives the same statistics as an
 uninterrupted one. Its numbers differ from the JAX package's threefry
 keys for the same seed: agreement with it is statistical.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md Queue 1 item: ``mesh`` (parallel/) and the ``plot_*`` methods
-(report/, in the leaf modules).
+Not ported yet: ``mesh`` (parallel/), which raises
+``NotImplementedError`` naming its ROADMAP.md Queue 1 item. The
+``plot_*`` methods draw through ``report.plots`` (matplotlib, imported
+only when a plot is drawn).
 """
 
 from __future__ import annotations
@@ -420,22 +421,26 @@ class LDPCSimulator:
                                  name)
         return self.results
 
-    # -- plotting lives in report/, not ported yet
+    # -- plotting (report/plots.py)
 
     def plot_fer_curves(self, path: str = "fer_comparison.png",
                         results=None):
-        raise _not_ported("plot_fer_curves (report/)", "Leaf modules")
+        from ldpc_tpu_torch.report import plot_fer_curves
+        return plot_fer_curves(results or self.results, path)
 
     def plot_ber_curves(self, path: str = "ber_comparison.png",
                         results=None):
-        raise _not_ported("plot_ber_curves (report/)", "Leaf modules")
+        from ldpc_tpu_torch.report import plot_ber_curves
+        return plot_ber_curves(results or self.results, path)
 
     def plot_iteration_curves(self, path: str = "iterations.png",
                               results=None):
-        raise _not_ported("plot_iteration_curves (report/)", "Leaf modules")
+        from ldpc_tpu_torch.report import plot_iteration_curves
+        return plot_iteration_curves(results or self.results, path)
 
     def plot_timing_curves(self, path: str = "timing.png", results=None):
-        raise _not_ported("plot_timing_curves (report/)", "Leaf modules")
+        from ldpc_tpu_torch.report import plot_timing_curves
+        return plot_timing_curves(results or self.results, path)
 
     # -- persistence (format-compatible with the JAX package's)
 

@@ -48,13 +48,14 @@ __all__ = ["TrainingConfig", "PosteriorJointTrainer", "posterior_joint_loss",
 
 @dataclasses.dataclass
 class TrainingConfig:
-    """The training options of ``ldpc_tpu.train.TrainingConfig``, each
-    read: batch, epochs, peak learning rate, SNR range (dB), joint or
-    final-only loss, global-norm clipping, the accuracy early stop, the
-    seed, the schedule ('constant' or 'cosine': linear warmup over
-    ``warmup_steps`` updates, then cosine decay to 1% of the peak at
-    ``decay_steps`` updates, warmup included), punctured positions (their
-    channel LLR is 0) and the L2 pull of the weights toward zero."""
+    """The training options of the JAX package's ``TrainingConfig``
+    (``ldpc_tpu/train/trainer.py``), each read: batch, epochs, peak
+    learning rate, SNR range (dB), joint or final-only loss, global-norm
+    clipping, the accuracy early stop, the seed, the schedule ('constant'
+    or 'cosine': linear warmup over ``warmup_steps`` updates, then cosine
+    decay to 1% of the peak at ``decay_steps`` updates, warmup included),
+    punctured positions (their channel LLR is 0) and the L2 pull of the
+    weights toward zero."""
 
     batch_size: int = 32
     num_epochs: int = 100

@@ -1,26 +1,91 @@
-"""Save and resume a trainer (counterpart of the trainer half of
+"""Checkpoints of weight trees and trainers (counterpart of
 ``ldpc_tpu/utils/checkpoint.py``).
 
-A checkpoint is a directory holding ``trainer.pt`` (``torch.save`` of the
-decoder's trainable weights, the optimizer's state, the schedule's update
-count, the optimizer's structure and the epoch) and ``history.json`` (the
-loss, accuracy and gradient-norm lists). It is read back with
-``torch.load(weights_only=True)``. The JAX package's orbax checkpoints are
-a different format and are not read.
+``save_checkpoint`` writes a nested dict, list or tuple of tensors, numpy
+arrays and numbers as one ``torch.save`` file, ``tree.pt``, in a
+directory; ``load_checkpoint`` reads it back with
+``torch.load(weights_only=True)``, optionally into a template's
+structure.
+
+A trainer checkpoint is a directory holding ``trainer.pt`` (``torch.save``
+of the decoder's trainable weights, the optimizer's state, the schedule's
+update count, the optimizer's structure and the epoch) and
+``history.json`` (the loss, accuracy and gradient-norm lists). It is read
+back with ``torch.load(weights_only=True)``.
+
+The JAX package's orbax checkpoints are a different format and are not
+read.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Any
 
+import numpy as np
 import torch
 
-__all__ = ["save_trainer_checkpoint", "load_trainer_checkpoint"]
+__all__ = ["save_checkpoint", "load_checkpoint", "save_trainer_checkpoint",
+           "load_trainer_checkpoint"]
 
+_TREE = "tree.pt"
 _STATE = "trainer.pt"
 _HISTORY = ("training_losses", "validation_losses", "training_accuracies",
             "gradient_norms")
+
+
+def _to_saved(tree):
+    """``tree`` with None dict entries stripped, numpy arrays and scalars
+    as CPU tensors and tensors detached on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _to_saved(v) for k, v in tree.items() if v is not None}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_saved(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(tree))
+    return tree
+
+
+def _into(saved, item):
+    """``saved`` in the structure of the template ``item``: its dicts'
+    keys (a missing key raises ``KeyError``), its sequences' types and
+    lengths, numpy leaves as numpy and tensor leaves on the template's
+    device."""
+    if isinstance(item, dict):
+        return {k: _into(saved[k], v) for k, v in item.items()
+                if v is not None}
+    if isinstance(item, (list, tuple)):
+        if len(saved) != len(item):
+            raise ValueError(f"checkpoint holds {len(saved)} entries where "
+                             f"the template has {len(item)}")
+        return type(item)(_into(s, v) for s, v in zip(saved, item))
+    if isinstance(item, torch.Tensor):
+        return saved.to(item.device)
+    if isinstance(item, (np.ndarray, np.generic)):
+        return saved.numpy()
+    return saved
+
+
+def save_checkpoint(path: str, tree: Any) -> str:
+    """Save a nested dict/list/tuple of tensors, arrays and numbers into
+    the directory ``path`` (created if needed); returns its absolute
+    path. ``None`` dict entries are dropped."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    torch.save(_to_saved(tree), os.path.join(path, _TREE))
+    return path
+
+
+def load_checkpoint(path: str, item: Any = None) -> Any:
+    """Restore a tree saved by :func:`save_checkpoint`: arrays come back as
+    CPU tensors, or, given a template ``item``, in its structure (numpy
+    where the template has numpy, tensors on the template's device)."""
+    saved = torch.load(os.path.join(os.path.abspath(path), _TREE),
+                       map_location="cpu", weights_only=True)
+    return saved if item is None else _into(saved, item)
 
 
 def save_trainer_checkpoint(path: str, trainer, epoch: int) -> str:

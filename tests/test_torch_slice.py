@@ -2,13 +2,14 @@
 (``make_decoder``, the ``Decoder`` call, ``make_two_checkpoint_decoder``)
 with the bench's decoder arguments, against ``ldpc_tpu`` with the same
 arguments; plus the channel, the jax-free import, the device default, and
-the refusals of the routes not ported yet.
+the refusals of the routes not ported yet (``mesh=``, parallel/).
 
 The code is a 2x6 full base with lift 32 (the bench's 5x37, lift 256
 shape class, cut to CPU size). Messages are f32 so that hard outputs can be
 compared exactly (in bf16 XLA:CPU keeps excess precision; see
 ``test_torch_fused_layered.py``)."""
 
+import os
 import subprocess
 import sys
 
@@ -98,12 +99,14 @@ def test_awgn_llr_reproducible_and_distributed():
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import ldpc_tpu_torch, ldpc_tpu_torch.decode._build, "
-            "ldpc_tpu_torch.zoo, ldpc_tpu_torch.sim; "
+            "ldpc_tpu_torch.zoo, ldpc_tpu_torch.sim, ldpc_tpu_torch.design, "
+            "ldpc_tpu_torch.report, ldpc_tpu_torch.encode, "
+            "ldpc_tpu_torch.sim.importance, ldpc_tpu_torch.utils; "
             "assert 'ldpc_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True)
 
 
-def test_unported_routes_refuse():
+def test_unported_routes_refuse(tmp_path):
     base = make_base(2, 6, 16, seed=2)
     code = lt.create_qc_code(base, lift=16, max_iterations=4)
     qc = lt.build_qc_graph(base, 16)
@@ -139,14 +142,20 @@ def test_unported_routes_refuse():
         dec = mk(qc=qc, qc_options=dict(check_every=2))
         assert lt.simulate_single_snr(
             dec, 3.0, lt.SimulationConfig(**cfg, **sim_kw))[3] == 4
-    # the simulator's unported paths: mesh sharding, plots
+    # the simulator's unported path: mesh sharding; its plots draw
+    # through report/
     with pytest.raises(NotImplementedError, match="parallel/"):
         lt.LDPCSimulator(lt.SimulationConfig(**cfg), mesh=object())
     sim = lt.LDPCSimulator(lt.SimulationConfig(**cfg))
+    res = lt.SimulationResult("MS", [1.0, 2.0])
+    res.add_result(0, 0.5, 0.1, 5.0, 1.0, 1000, 500)
+    res.add_result(1, 0.1, 0.01, 4.0, 1.0, 1000, 100)
+    sim.results = {"MS": res}
     for plot in ("plot_fer_curves", "plot_ber_curves",
                  "plot_iteration_curves", "plot_timing_curves"):
-        with pytest.raises(NotImplementedError, match="report/"):
-            getattr(sim, plot)()
+        path = str(tmp_path / f"{plot}.png")
+        assert getattr(sim, plot)(path) == path
+        assert os.path.getsize(path) > 1000
     # a dropped decoder never hides an unported route
 
     class Unported:
