@@ -109,6 +109,27 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    ``trace()`` around one IS batch with its K1 event counted, and a
    ``save_checkpoint``/``load_checkpoint`` round trip of the ladders and
    the estimates.
+13. parallel and the CLIs: (a) a world of one over NCCL in this process:
+   the bench program over the mesh (``make_spmd_two_checkpoint_stats_fn``
+   on phase 4's decoder and first B=32768 LLR set at 7.0 dB) with its five
+   pooled stats equal to the single-device two-checkpoint decode and
+   exactly 2 K1 launches, timed in turns against the same program without
+   a process group and the decode alone (phase 4's wave printed beside); ``LDPCSimulator(mesh=)`` on ``zoo/worcq_bc3_qc9472`` at
+   6.5 dB with 32768-frame waves, the plain SPMD wave through K4 and phase
+   9's compaction with stage 1 on K4, each equal to the single-device
+   simulator's counts; one data-parallel step of the zoo's flooding recipe
+   (B=128, T=10) leaving weights equal to the step without a mesh. (b) Two
+   ranks sharing the card over gloo (``parallel.spawn``): a K4 SPMD wave of
+   2x4096 frames equal to the sum of the two ranks' waves drawn here with
+   their generators; the bench program at B=2x16384 (S=128 a rank) equal
+   to the single-device decode; two data-parallel steps within rtol 1e-5
+   of one process's. (c) The CLI twins on the card, each timed:
+   ``examples`` (every scenario, in a process beside (b)),
+   ``comprehensive --code peg``,
+   ``graft_entry`` (``entry()`` and ``dryrun_multichip(1)`` over NCCL), and
+   ``generate_images``' comparison at 1024 frames and its DE figure (the DE
+   curves are host numpy, computed in the worker process beside phases
+   1-12; without matplotlib the figures' data is checked and not drawn).
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -261,6 +282,15 @@ FLOOR_KW = dict(kind="rcq", bc=4, bv=8,
                 max_iterations=10, layered=True)
 FLOOR_SNR, FLOOR_SHIFT, FLOOR_SAMPLES, FLOOR_BATCH = 3.6, 1.6, 2 ** 15, 2 ** 11
 FLOOR_EXEMPLARS, FLOOR_CLASSES, FLOOR_SEED = 3, 4, 20260818
+# phase 13: the mesh paths. (a) phase 9's wave without early exit through
+# the zoo's fused decoder (K4), and phase 9's compaction; (b) two gloo
+# ranks on the card: a K4 wave of 2x4096 frames at 6.5 dB, the bench
+# program at B=2x16384 with S=128 a rank (phase 4 keeps < 128 survivors in
+# 32768 frames at 7.0 dB), two steps of the flooding recipe
+P13_WAVE = dict(NF_CONFIG, early_exit_iters=None, survivor_budget=None,
+                stage1_fused=False)
+P13_GLOO_WAVE, P13_GLOO_B, P13_SEED = 2 * 4096, 2 * 16384, 13
+P13_STEP_RTOL = 1e-5
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -1048,8 +1078,7 @@ def phase11(dev, card):
     # card = CPU: one numpy batch, two steps of the flooding recipe
     fresh = recipe_decoder(ZOO_ENTRY, dev)
     pair = [lt.PosteriorJointTrainer(d, lt.TrainingConfig(**TR_CFG)) for d in
-            (fresh, dataclasses.replace(fresh, device=torch.device("cpu"))
-             .replace_weights(fresh.weights))]
+            (fresh, fresh.to("cpu"))]
     x = numpy_llr(TR_CPU_B, fresh.code.n, 6.5, seed=11)
     worst = dict(loss=0.0, acc=0.0, gnorm=0.0, weights=0.0)
     t0 = time.perf_counter()
@@ -1476,9 +1505,284 @@ def phase12(dev, card, design):
     return counts["K1"], k1_err
 
 
-def run(design):
-    """Phases 1-12; ``design`` is the result handle of :func:`bench_design`
-    running in a worker process."""
+def stats_of(out, n_surv):
+    """The bench program's five stats of a two-checkpoint decode."""
+    from ldpc_tpu_torch.sim.montecarlo import _counts
+    return _counts(out.bits, out.iterations, out.success).tolist() + [
+        int(n_surv)]
+
+
+def de_data():
+    """``generate_images``' DE curves and their host seconds. Runs in a
+    worker process."""
+    from ldpc_tpu_torch.cli.generate_images import de_curves
+    t0 = time.perf_counter()
+    return de_curves(), time.perf_counter() - t0
+
+
+def same_results(name, got, want):
+    """Two simulation results equal but for their wall-clock times."""
+    a, b = (dict(r.to_dict(), simulation_times=None) for r in (got, want))
+    if a != b:
+        raise AssertionError(f"{name}: mesh {a} != single device {b}")
+
+
+def phase13_nccl(dev, card, dec, wave_ms):
+    """(a) A world of one over NCCL in this process: the bench program,
+    the simulator's two mesh waves, a data-parallel step. Returns the
+    launches of the mesh path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.parallel import (Mesh, distributed_init, make_mesh,
+                                         make_spmd_two_checkpoint_stats_fn)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed_init(f"file://{os.path.join(tmp, 'store')}", 1, 0,
+                         backend="nccl" if dev.type == "cuda" else "gloo")
+        try:
+            mesh = make_mesh(devices=dev)
+            print(f"[13 parallel, CLIs] (a) NCCL world of one: rank "
+                  f"{mesh.rank} of {mesh.size} on {mesh.device}, backend "
+                  f"{mesh.backend}")
+            gen = torch.Generator(device=dev).manual_seed(0)  # phase 4's
+            llr = lt.awgn_llr(gen, torch.zeros((B_MAIN, dec.code.n),
+                                               device=dev), SNR_DB)
+            two_ck = lt.make_two_checkpoint_decoder(dec, t1=T1,
+                                                    survivor_budget=S)
+            fn, alone = (make_spmd_two_checkpoint_stats_fn(
+                dec, t1=T1, survivor_budget=S, mesh=m)
+                for m in (mesh, Mesh(1, 0, dev)))
+            reset_counts()
+            pooled = fn(llr).tolist()
+            bench = read_counts()
+            single = uncounted(lambda: stats_of(*two_ck(llr)))
+            # in turns: the NCCL mesh, the same program without a group
+            # (its all_reduce is the identity), and the decode alone
+            ms = uncounted(lambda: [time_ms(lambda: f(llr), 6) for f in (
+                fn, alone, lambda x: two_ck(x), lambda x: two_ck(x), alone,
+                fn)])
+            print(f"  bench program B={B_MAIN} at {SNR_DB} dB: pooled "
+                  f"(frame errors, bit errors, iterations, successes, "
+                  f"survivors) {pooled} == single device {single}; K1 "
+                  f"launches {bench['K1']} a call; ms a call (CUDA events, "
+                  f"6 calls each, in turns): NCCL mesh {ms[0]:.3f} / "
+                  f"{ms[5]:.3f}, without a group {ms[1]:.3f} / {ms[4]:.3f}, "
+                  f"the two-checkpoint decode alone {ms[2]:.3f} / "
+                  f"{ms[3]:.3f}; phase 4's wave {wave_ms:.3f} ms  [{card}]")
+            if pooled != single or bench != dict(K1=2, K4=0, K5=0, K6=0):
+                raise AssertionError("the bench program over the mesh")
+            del llr
+
+            zdec = lt.load_pretrained(ZOO_ENTRY, qc_options=dict(
+                fused=True, dtype=torch.bfloat16, lean=True))
+            nfdec = lt.load_pretrained(ZOO_ENTRY, qc_options=dict(
+                dtype=torch.bfloat16, check_every=5))
+            for name, d, cfg in (("plain SPMD wave (K4)", zdec, P13_WAVE),
+                                 ("phase 9's compaction (stage 1 K4)", nfdec,
+                                  NF_CONFIG)):
+                c = lt.SimulationConfig(**cfg)
+                t0 = time.perf_counter()
+                res = lt.LDPCSimulator(c, mesh=mesh).simulate_decoder(
+                    d, ZOO_ENTRY, verbose=False)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                want = uncounted(lambda: lt.LDPCSimulator(c).simulate_decoder(
+                    d, ZOO_ENTRY, verbose=False))
+                torch.cuda.synchronize()
+                same_results(name, res, want)
+                print(f"  LDPCSimulator(mesh=) {ZOO_ENTRY} {name}: "
+                      f"{res.total_frames[0]} frames at 6.5 dB, "
+                      f"{res.total_errors[0]} frame errors, BER "
+                      f"{res.bit_error_rates[0]:.6g}, avg iterations "
+                      f"{res.average_iterations[0]:.4f} == single device; "
+                      f"{t1 - t0:.2f} s mesh, {time.perf_counter() - t1:.2f}"
+                      f" s single  [{card}]")
+            sim = read_counts()
+
+            fresh = recipe_decoder(ZOO_ENTRY, dev)
+            trs = [lt.PosteriorJointTrainer(dataclasses.replace(fresh),
+                                            lt.TrainingConfig(**TR_CFG),
+                                            mesh=m) for m in (None, mesh)]
+            batch = trs[0].sample()
+            secs = []
+            for tr in trs:  # the first step also warms the allocator up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train_step(*batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            same = all(torch.equal(w, trs[0].decoder.weights[k])
+                       for k, w in trs[1].decoder.weights.items())
+            print(f"  data-parallel step, {ZOO_ENTRY} recipe B="
+                  f"{TR_CFG['batch_size']}: weights equal to the step "
+                  f"without a mesh: {same}; {secs[0]:.2f} s without (the "
+                  f"first, with the warm-up), {secs[1]:.2f} s mesh  [{card}]")
+            counts = read_counts()
+            if not same or counts != dict(K1=2, K4=2, K5=0, K6=0) or \
+                    sim != counts:
+                raise AssertionError(f"mesh path launches {counts}, the "
+                                     "training step's weights")
+            return counts
+        finally:
+            dist.destroy_process_group()
+
+
+def phase13_gloo(dev, card, dec):
+    """(b) Two gloo ranks sharing the card: a K4 wave, the bench program,
+    two data-parallel steps, each against this process."""
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.parallel import launch, spawn
+    from ldpc_tpu_torch.sim.montecarlo import _Wave, point_generator
+
+    zdec = lt.load_pretrained(ZOO_ENTRY, qc_options=dict(
+        fused=True, dtype=torch.bfloat16, lean=True))
+    fresh = recipe_decoder(ZOO_ENTRY, dev)
+    xs = [numpy_llr(TR_CFG["batch_size"], fresh.code.n, 6.5,
+                    seed=130 + i).numpy() for i in range(2)]
+    batches = [(x, np.zeros_like(x)) for x in xs]
+    calls = [(launch.wave, (zdec.to("cpu"), P13_GLOO_WAVE, 6.5, P13_SEED)),
+             (launch.two_checkpoint_stats, (dec.to("cpu"), P13_GLOO_B, SNR_DB,
+                                            P13_SEED, T1, S)),
+             (launch.train_steps, (fresh.to("cpu"),
+                                   lt.TrainingConfig(**TR_CFG), batches))]
+    t0 = time.perf_counter()
+    r0, r1 = spawn(launch.run_all, 2, "gloo", dev, calls)
+    t_spawn = time.perf_counter() - t0
+
+    per = P13_GLOO_WAVE // 2
+    local = [uncounted(lambda: _Wave(zdec, per, dev)(
+        point_generator(P13_SEED, 0, dev, r, 2), 6.5)) for r in range(2)]
+    wave_sum = [a + b for a, b in zip(*local)]
+    llr = launch.global_llr(P13_GLOO_B, dec.code.n, SNR_DB, P13_SEED, dev)
+    single = uncounted(lambda: stats_of(*lt.make_two_checkpoint_decoder(
+        dec, t1=T1, survivor_budget=P13_GLOO_B)(llr)))
+    del llr
+    tr = lt.PosteriorJointTrainer(dataclasses.replace(fresh),
+                                  lt.TrainingConfig(**TR_CFG))
+    for x, y in batches:
+        tr.train_step(torch.as_tensor(x, device=dev),
+                      torch.as_tensor(y, device=dev))
+    rel = max(float(np.max(np.abs(w - tr.decoder.weights[k].cpu().numpy()) /
+                           np.abs(tr.decoder.weights[k].cpu().numpy())))
+              for k, w in r0[2]["weights"].items())
+    print(f"  (b) two gloo ranks on one card, {t_spawn:.1f} s for the spawn "
+          f"and its three jobs: K4 wave of 2x{per} frames at 6.5 dB pooled "
+          f"{r0[0]} == the ranks' sum {wave_sum}; bench program "
+          f"B=2x{P13_GLOO_B // 2}, S={S} a rank: pooled {r0[1]} == single "
+          f"device {single}; two data-parallel steps: weights max relative "
+          f"|d| {rel:.3g} from one process's (tolerance {P13_STEP_RTOL})  "
+          f"[{card}]")
+    if r0[:2] != r1[:2] or r0[0] != wave_sum or r0[1] != single or \
+            rel > P13_STEP_RTOL or r0[2]["stats"] != r1[2]["stats"]:
+        raise AssertionError("two gloo ranks disagree with one process")
+
+
+def phase13_cli(dev, card, de, tmp):
+    """(c) The CLI twins other than ``examples``, on the card in this
+    process, each timed; a failure raises. They write under ``tmp``."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from ldpc_tpu_torch.cli import comprehensive, generate_images, graft_entry
+
+    for mod, argv, want in (
+            (comprehensive, ["--code", "peg"],
+             "ALL COMPREHENSIVE TESTS PASSED"),
+            (graft_entry, [], "dryrun_multichip ok")):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main(argv + ["--device", dev.type])
+        lines = out.getvalue().strip().splitlines()
+        print(f"  (c) {mod.__name__.split('.')[-1]} {' '.join(argv)}: "
+              f"{time.perf_counter() - t0:.1f} s, {len(lines)} lines, "
+              f"last {lines[-1] if lines else ''!r}")
+        if want not in out.getvalue():
+            raise AssertionError(f"{mod.__name__}:\n{out.getvalue()}")
+    t0 = time.perf_counter()
+    drawn = importlib.util.find_spec("matplotlib") is not None
+    if drawn:
+        paths = generate_images.generate_all_images(
+            tmp, 1024, verbose=False, device=dev)
+    else:  # the figures' data: the simulation, saved as JSON
+        generate_images.comparison_results(tmp, 1024, verbose=False,
+                                           device=dev)
+        paths = []
+    with open(os.path.join(tmp, "mc_results.json")) as f:
+        fer = {k: r["frame_error_rates"] for k, r in json.load(f).items()}
+    t_img = time.perf_counter() - t0
+    curves, t_de = de.get()
+    # DE iterations to 1e-5 on the bench base; the PBRL ladders' error
+    # at 4 dB (the bc=4 ladders remove the bc=3 plateau)
+    reach = {s: 1 + int(np.argmax(np.asarray(curves[s]) < 1e-5))
+             for s in ("flooding", "layered")}
+    pbrl = {k: v[-1] for k, v in curves["pbrl"].items()}
+    if drawn:
+        paths.append(generate_images.generate_de_figure(tmp, False,
+                                                        curves))
+    print(f"  (c) generate_images at 1024 frames: {t_img:.1f} s, "
+          + (f"{len(paths)} figures drawn" if drawn else
+             "matplotlib is not installed: the figures' data checked, "
+             "not drawn") +
+          f"; FER at 0..5 dB by decoder {fer}; DE curves {t_de:.1f} s "
+          f"on the host (worker): below 1e-5 at iteration {reach} on "
+          f"the bench base, PBRL at 4 dB {pbrl}  [{card}]")
+    bc3, *bc4 = pbrl.values()
+    if not all(os.path.getsize(p) > 1000 for p in paths) or \
+            not reach["layered"] < reach["flooding"] or \
+            not bc3 > max(bc4) or \
+            len(fer) != 10 or not all(len(f) == 6 and
+                                      0 <= f[-1] <= f[0] <= 1
+                                      for f in fer.values()):
+        raise AssertionError(f"generate_images: {paths}, FER {fer}")
+
+
+def phase13(dev, card, dec, wave_ms, de):
+    """Parallel and the CLI twins; returns the mesh path's launches. The
+    ``examples`` process runs beside (b), which times nothing it claims."""
+    import re
+    import tempfile
+
+    t_phase = time.perf_counter()
+    counts = phase13_nccl(dev, card, dec, wave_ms)
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        t0 = time.perf_counter()
+        ex = subprocess.Popen(
+            [sys.executable, "-m", "ldpc_tpu_torch.cli.examples",
+             "--device", dev.type], cwd=tmp, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=root))
+        try:
+            phase13_gloo(dev, card, dec)
+            out = ex.communicate(timeout=900)[0]
+        finally:
+            if ex.poll() is None:
+                ex.kill()
+                ex.wait()
+        done = dict(re.findall(r"^\[(\w+)\] done in ([\d.]+)s", out, re.M))
+        print(f"  (c) python -m ldpc_tpu_torch.cli.examples (every "
+              f"scenario, beside (b)): rc {ex.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s; seconds by scenario "
+              f"{done}")
+        if ex.returncode != 0 or len(done) != 16:
+            raise AssertionError(f"examples failed:\n{out[-4000:]}")
+        torch.cuda.empty_cache()
+        phase13_cli(dev, card, de, tmp)
+    print(f"  launches of the mesh path in (a): {counts}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def run(design, de):
+    """Phases 1-13; ``design`` and ``de`` are the result handles of
+    :func:`bench_design` and :func:`de_data` running in a worker
+    process."""
     import ldpc_tpu_torch as lt
     from ldpc_tpu_torch.decode import _build, two_checkpoint_stages
     from ldpc_tpu_torch.sim import point_generator
@@ -1765,6 +2069,8 @@ def run(design):
     phase11(dev, card)
     torch.cuda.empty_cache()
     p12_launches, p12_err = phase12(dev, card, design)
+    torch.cuda.empty_cache()
+    p13 = phase13(dev, card, dec, 1e3 * secs / n_timed, de)
 
     print(card)
     k4 = k4_times[SIM_WAVE]
@@ -1773,7 +2079,7 @@ def run(design):
         "route": "cuda",
         "source": "ldpc_tpu_torch/csrc/fused_layered.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
-        "launches": launches + p12_launches,
+        "launches": launches + p12_launches + p13["K1"],
         "max_abs_err": max(max_err, p12_err),
         "ms": times[256][0],
         "plain_ms": times[256][1],
@@ -1785,7 +2091,7 @@ def run(design):
         "route": "cuda",
         "source": "ldpc_tpu_torch/csrc/fused_flooding.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:195",
-        "launches": k4_launches,
+        "launches": k4_launches + p13["K4"],
         "max_abs_err": k4_err,
         "ms": k4[0],
         "plain_ms": k4[1],
@@ -1813,12 +2119,13 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "run only on an NVIDIA GPU")
-    # phase 12's design is host numpy for a minute or two: it runs in a
-    # worker process from the start, beside phases 1-11 (leaving the pool
-    # terminates the worker)
+    # phase 12's design and phase 13's DE curves are host numpy for a
+    # minute or two each: they run in a worker process from the start,
+    # beside phases 1-11 (leaving the pool terminates the worker)
     base = np.random.default_rng(0).integers(0, 256, size=(5, 37))
     with multiprocessing.get_context("spawn").Pool(1) as pool:
-        run(pool.apply_async(bench_design, (base,)))
+        run(pool.apply_async(bench_design, (base,)),
+            pool.apply_async(de_data))
 
 
 if __name__ == "__main__":

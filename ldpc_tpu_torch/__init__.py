@@ -12,10 +12,10 @@ Monte-Carlo simulator and importance-sampled error floors (``sim``),
 training (the straight-through quantizers, autograd through every engine,
 the posterior-joint trainer, the gradient analyzer), the design tools
 (density evolution, ladder design, trapping sets: ``design``), reports and
-plots (``report``), checkpoints and profiling (``utils``). Decoders,
-simulations and trainers run on the card unless given ``device="cpu"``.
-What is still to come (``parallel/`` and the root scripts) is listed in
-ROADMAP.md.
+plots (``report``), checkpoints and profiling (``utils``), batch-parallel
+waves and training on ``torch.distributed`` (``parallel``) and twins of
+the root scripts (``cli``). Decoders, simulations and trainers run on the
+card unless given ``device="cpu"``.
 """
 
 from ldpc_tpu_torch.codes import (

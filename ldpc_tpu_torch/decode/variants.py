@@ -83,12 +83,6 @@ __all__ = [
 ]
 
 
-def _not_ported(route: str, item: str):
-    return NotImplementedError(
-        f"{route} is not ported to ldpc_tpu_torch yet (ROADMAP.md Queue 1: "
-        f"{item}); use ldpc_tpu for it")
-
-
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device must exist (the port
     never falls back to the CPU on its own)."""
@@ -295,6 +289,11 @@ class Decoder:
         return dataclasses.replace(self, spec=spec, weights=weights,
                                    max_iterations=T1,
                                    qc_options=(opts or None))
+
+    def to(self, device) -> "Decoder":
+        """This decoder on ``device``, its weights moved there."""
+        return dataclasses.replace(
+            self, device=resolve_device(device)).replace_weights(self.weights)
 
     def replace_weights(self, weights) -> "Decoder":
         """This decoder with ``weights``, moved to its device."""

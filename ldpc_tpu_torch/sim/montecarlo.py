@@ -34,10 +34,14 @@ SNR index), so a resumed sweep gives the same statistics as an
 uninterrupted one. Its numbers differ from the JAX package's threefry
 keys for the same seed: agreement with it is statistical.
 
-Not ported yet: ``mesh`` (parallel/), which raises
-``NotImplementedError`` naming its ROADMAP.md Queue 1 item. The
-``plot_*`` methods draw through ``report.plots`` (matplotlib, imported
-only when a plot is drawn).
+With a ``mesh`` (``ldpc_tpu_torch.parallel``) the waves are SPMD: each
+rank draws and decodes its ``wave_size // mesh.size`` frames from its own
+generator (:func:`point_generator` of its rank; a world of one draws the
+single-device numbers), a compacting wave compacts each rank's shard with
+its share of the budget, and the counts cross ranks as one ``all_reduce``
+a wave. Every rank returns the same pooled results; only rank 0 writes
+files. The ``plot_*`` methods draw through ``report.plots`` (matplotlib,
+imported only when a plot is drawn).
 """
 
 from __future__ import annotations
@@ -57,8 +61,7 @@ from ldpc_tpu_torch.channel import awgn_llr, puncture_llr
 from ldpc_tpu_torch.decode.early_exit import (gather_survivors,
                                               make_two_checkpoint_decoder,
                                               two_checkpoint_stages)
-from ldpc_tpu_torch.decode.variants import (Decoder, _not_ported,
-                                            resolve_device)
+from ldpc_tpu_torch.decode.variants import Decoder, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -156,10 +159,14 @@ class SimulationResult:
         return r
 
 
-def point_generator(seed: int, snr_idx: int, device) -> torch.Generator:
-    """The generator of SNR point ``snr_idx`` of a sweep seeded ``seed``."""
-    state = np.random.SeedSequence([seed, snr_idx]).generate_state(
-        1, np.uint64)[0]
+def point_generator(seed: int, snr_idx: int, device, rank: int = 0,
+                    size: int = 1) -> torch.Generator:
+    """The generator of SNR point ``snr_idx`` of a sweep seeded ``seed``:
+    on a mesh of ``size`` ranks, rank ``rank``'s own (derived from
+    ``(seed, snr_idx, rank)``; a world of one keeps the single-device
+    generator)."""
+    key = [seed, snr_idx] if size == 1 else [seed, snr_idx, rank]
+    state = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
 
@@ -178,11 +185,14 @@ def _counts(bits, iterations, success, keep=None) -> torch.Tensor:
 
 class _Wave:
     """One wave of the plain decoder: draw the LLRs, decode, count.
-    ``kinds`` counts the waves run, by kind."""
+    ``kinds`` counts the waves run, by kind. ``reduce`` (a mesh's
+    ``all_reduce``) sums a wave's count tensor over ranks before the host
+    reads it."""
 
     def __init__(self, decoder: Decoder, wave_size: int, device,
-                 punctured=None):
+                 punctured=None, reduce=None):
         self.decoder = decoder
+        self.reduce = reduce
         n = decoder.code.n
         self.zeros = torch.zeros((wave_size, n), device=device)
         self.mask = (None if punctured is None else
@@ -193,10 +203,17 @@ class _Wave:
         llr = awgn_llr(gen, self.zeros, snr)
         return llr if self.mask is None else llr * self.mask
 
+    def _host(self, c: torch.Tensor, read=None) -> List[int]:
+        """The counts ``c`` on the host, summed over the mesh's ranks;
+        ``read`` is ``c`` already read by this rank (one transfer)."""
+        if self.reduce is not None:
+            return self.reduce(c).tolist()
+        return c.tolist() if read is None else read
+
     def counts(self, llr, weights=None) -> List[int]:
         out = self.decoder(llr, weights)
         self.kinds["plain"] += 1
-        return _counts(out.bits, out.iterations, out.success).tolist()
+        return self._host(_counts(out.bits, out.iterations, out.success))
 
     def __call__(self, gen: torch.Generator, snr, weights=None) -> List[int]:
         return self.counts(self.llr(gen, snr), weights)
@@ -207,8 +224,8 @@ class _CompactingWave(_Wave):
     the survivors fit the budget, else decoded whole at both depths."""
 
     def __init__(self, decoder: Decoder, wave_size: int, device, t1: int,
-                 survivor_budget: int, punctured=None):
-        super().__init__(decoder, wave_size, device, punctured)
+                 survivor_budget: int, punctured=None, reduce=None):
+        super().__init__(decoder, wave_size, device, punctured, reduce)
         self.budget = survivor_budget
         self.compacted = make_two_checkpoint_decoder(
             decoder, t1=t1, survivor_budget=survivor_budget)
@@ -221,7 +238,7 @@ class _CompactingWave(_Wave):
         vals = torch.cat([c, n_surv.view(1).to(torch.int64)]).tolist()
         if vals[4] <= self.budget:
             self.kinds["compacted"] += 1
-            return vals[:4]
+            return self._host(c, vals[:4])
         # survivor overflow: the same schedule on every frame of the wave
         self.kinds["fallback"] += 1
         o1 = self.stage1(llr, w)
@@ -229,7 +246,7 @@ class _CompactingWave(_Wave):
         conv = o1.success
         bits = torch.where(conv[:, None], o1.bits, o2.bits)
         iters = torch.where(conv, o1.iterations, o2.iterations)
-        return _counts(bits, iters, conv | o2.success).tolist()
+        return self._host(_counts(bits, iters, conv | o2.success))
 
 
 class _EngineCompactingWave(_Wave):
@@ -238,8 +255,9 @@ class _EngineCompactingWave(_Wave):
     and the plain wave when more survive than the budget holds."""
 
     def __init__(self, decoder: Decoder, wave_size: int, device, t1: int,
-                 survivor_budget: int, stage1_fused: bool, punctured=None):
-        super().__init__(decoder, wave_size, device, punctured)
+                 survivor_budget: int, stage1_fused: bool, punctured=None,
+                 reduce=None):
+        super().__init__(decoder, wave_size, device, punctured, reduce)
         self.budget, self.t1 = survivor_budget, t1
         short = decoder.truncated(t1)
         if stage1_fused:
@@ -270,19 +288,21 @@ class _EngineCompactingWave(_Wave):
         vals = torch.cat([c, n_surv.view(1).to(torch.int64)]).tolist()
         if vals[4] <= self.budget:
             self.kinds["compacted"] += 1
-            return vals[:4]
+            return self._host(c, vals[:4])
         self.kinds["fallback"] += 1  # survivor overflow: the plain wave
         out = self.decoder(llr, weights)
-        return _counts(out.bits, out.iterations, out.success).tolist()
+        return self._host(_counts(out.bits, out.iterations, out.success))
 
 
 def _build_wave(decoder: Decoder, config: SimulationConfig, mesh=None):
-    if mesh is not None:
-        raise _not_ported("mesh-sharded simulation", "parallel/")
     device = resolve_device(config.device)
     punct = config.punctured_positions
     if config.early_exit_iters is None:
-        return _Wave(decoder, config.wave_size, device, punct)
+        if mesh is None:
+            return _Wave(decoder, config.wave_size, device, punct)
+        from ldpc_tpu_torch.parallel.montecarlo import make_spmd_wave_fn
+        return make_spmd_wave_fn(decoder, config.wave_size, mesh,
+                                 punctured=punct)
     opts = decoder.qc_options or {}
     budget = (config.survivor_budget if config.survivor_budget is not None
               else max(1, config.wave_size // 4))
@@ -291,6 +311,14 @@ def _build_wave(decoder: Decoder, config: SimulationConfig, mesh=None):
     if ce and t1 % ce:
         # stage 1 is judged on the decoder's own check schedule: round up
         t1 = ((t1 + ce - 1) // ce) * ce
+    if mesh is not None:
+        # each rank compacts its shard; a fused parent is refused there,
+        # as in ldpc_tpu (it cannot be truncated)
+        from ldpc_tpu_torch.parallel.montecarlo import \
+            make_spmd_compacting_wave_fn
+        return make_spmd_compacting_wave_fn(
+            decoder, config.wave_size, t1, budget, mesh,
+            stage1_fused=config.stage1_fused, punctured=punct)
     if not opts.get("fused"):
         return _EngineCompactingWave(decoder, config.wave_size, device, t1,
                                      budget, config.stage1_fused, punct)
@@ -346,12 +374,17 @@ class LDPCSimulator:
     """Multi-decoder Monte-Carlo harness. Decoders run one after another,
     each sweep saturating the device with its waves. ``wave_kinds[name]``
     lists, per SNR point, how many waves of each kind ran ("plain",
-    "compacted", "fallback")."""
+    "compacted", "fallback") on this rank. With a ``mesh`` the waves are
+    sharded over its ranks (module docstring); ``config.device`` must
+    name the mesh's kind of device."""
 
     def __init__(self, config: Optional[SimulationConfig] = None, mesh=None):
-        if mesh is not None:
-            raise _not_ported("mesh-sharded simulation", "parallel/")
         self.config = config or SimulationConfig()
+        self.mesh = mesh
+        if mesh is not None and \
+                mesh.device.type != resolve_device(self.config.device).type:
+            raise ValueError(f"the mesh decodes on {mesh.device}, the "
+                             f"config names {self.config.device!r}")
         self.results: Dict[str, SimulationResult] = {}
         self.wave_kinds: Dict[str, List[Dict[str, int]]] = {}
 
@@ -379,8 +412,11 @@ class LDPCSimulator:
                 if verbose and done_points:
                     logger.info("%s: resuming after %d completed SNR points",
                                 name, done_points)
-        wave_fn = _build_wave(decoder, self.config)
-        device = resolve_device(self.config.device)
+        mesh = self.mesh
+        wave_fn = _build_wave(decoder, self.config, mesh)
+        device, rank, size = ((resolve_device(self.config.device), 0, 1)
+                              if mesh is None else
+                              (mesh.device, mesh.rank, mesh.size))
         kinds = self.wave_kinds.setdefault(name, [])
         for idx, snr in enumerate(snrs):
             if idx < done_points:
@@ -389,12 +425,13 @@ class LDPCSimulator:
             t0 = time.time()
             fer, ber, avg_iter, frames, errors = simulate_single_snr(
                 decoder, float(snr), self.config,
-                gen=point_generator(self.config.seed, idx, device),
+                gen=point_generator(self.config.seed, idx, device, rank,
+                                    size),
                 wave_fn=wave_fn)
             dt = time.time() - t0
             kinds.append(dict(wave_fn.kinds))
             result.add_result(idx, fer, ber, avg_iter, dt, frames, errors)
-            if checkpoint:
+            if checkpoint and self._writes():
                 with open(checkpoint, "w") as f:
                     json.dump(result.to_dict(), f)
             if verbose:
@@ -420,6 +457,11 @@ class LDPCSimulator:
                 logger.exception("decoder %s failed; dropped from results",
                                  name)
         return self.results
+
+    def _writes(self) -> bool:
+        """Whether this process writes files: rank 0 of a mesh, or the
+        only process."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # -- plotting (report/plots.py)
 
@@ -450,12 +492,13 @@ class LDPCSimulator:
         """Write ``results`` (default: ``self.results``) as JSON under
         ``config.results_dir``; returns the path."""
         results = results if results is not None else self.results
-        os.makedirs(self.config.results_dir, exist_ok=True)
         path = os.path.join(self.config.results_dir, filename)
-        with open(path, "w") as f:
-            json.dump({k: r.to_dict() for k, r in results.items()}, f,
-                      indent=2)
-        logger.info("Results saved to %s", path)
+        if self._writes():
+            os.makedirs(self.config.results_dir, exist_ok=True)
+            with open(path, "w") as f:
+                json.dump({k: r.to_dict() for k, r in results.items()}, f,
+                          indent=2)
+            logger.info("Results saved to %s", path)
         return path
 
     def load_results(self, filename: str) -> Dict[str, SimulationResult]:

@@ -23,6 +23,14 @@ Data comes from the trainer's ``torch.Generator`` on the decoder's device
 (its numbers differ from ``jax.random``'s for the same seed); pass shared
 LLRs to :meth:`PosteriorJointTrainer.train_step` to compare the two
 packages step for step.
+
+Data-parallel training (``mesh=``, ``ldpc_tpu_torch.parallel``): every
+rank draws the same global batch and decodes its rows of it; the loss is
+its share of the global mean (the local mean over ``mesh.size``), and the
+gradients, the loss and the accuracy are summed over ranks in one
+``all_reduce`` before the norm, the clipping and the same Adam step on
+every rank, so the weights stay replicated. A world of one steps as
+without a mesh, bit for bit.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from ldpc_tpu_torch.channel import awgn_llr
-from ldpc_tpu_torch.decode.variants import Decoder, _not_ported
+from ldpc_tpu_torch.parallel.mesh import batch_sharding
+from ldpc_tpu_torch.decode.variants import Decoder
 
 logger = logging.getLogger(__name__)
 
@@ -140,19 +149,24 @@ class PosteriorJointTrainer:
     The decoder's weights are the source of truth: each step starts from
     them, and each step leaves them as detached float32 tensors on the
     decoder's device, so the fused decoders and ``zoo.save_pretrained``
-    take them as they are. ``mesh=`` (data-parallel training) is not
-    ported."""
+    take them as they are. With a ``mesh`` each step is data-parallel
+    over its ranks (module docstring)."""
 
     def __init__(self, decoder: Decoder,
                  config: Optional[TrainingConfig] = None, mesh=None):
-        if mesh is not None:
-            raise _not_ported("data-parallel training (mesh=)", "parallel/")
         if all(w is None for w in decoder.weights.values()):
             raise ValueError(
                 f"decoder {decoder.name!r} has no trainable weights")
         self.decoder = decoder
         self.config = config or TrainingConfig()
         self.device = decoder.device
+        self.mesh = mesh
+        if mesh is not None and (mesh.device.type != self.device.type or
+                                 self.config.batch_size % mesh.size):
+            raise ValueError(
+                f"a mesh of {mesh.size} ranks on {mesh.device} cannot "
+                f"train a decoder on {self.device} with batch_size "
+                f"{self.config.batch_size}")
         self._lr = learning_rate_schedule(self.config)
         self.params = {k: torch.as_tensor(w, dtype=torch.float32,
                                           device=self.device)
@@ -186,7 +200,8 @@ class PosteriorJointTrainer:
 
     def train_step(self, llr: torch.Tensor, targets: torch.Tensor):
         """One update on the batch ``llr`` [B, n] with ``targets`` [B, n]
-        (the counterpart of the JAX trainer's ``_train_step``). Returns
+        (the counterpart of the JAX trainer's ``_train_step``; on a mesh,
+        the global batch, of which this rank decodes its rows). Returns
         ``(loss, accuracy, gradient norm)`` as 0-d tensors, the norm taken
         before clipping."""
         cfg = self.config
@@ -195,11 +210,18 @@ class PosteriorJointTrainer:
                 if self.decoder.weights[k] is not self._synced.get(k):
                     p.copy_(self.decoder.weights[k])
         params = list(self.params.values())
+        if self.mesh is not None:
+            shard = batch_sharding(self.mesh)
+            llr, targets = shard(llr), shard(targets)
         loss, (_, acc) = posterior_joint_loss(
             self._merged(self.params), llr, targets, decoder=self.decoder,
             joint=cfg.use_posterior_training)
+        if self.mesh is not None:  # this rank's share of the global mean
+            loss = loss / self.mesh.size
         grads = torch.autograd.grad(loss, params, allow_unused=True,
                                     materialize_grads=True)
+        if self.mesh is not None:
+            grads, loss, acc = self._pooled(grads, loss, acc)
         gnorm = global_norm(grads)
         if cfg.use_gradient_clipping:
             grads = clip_by_global_norm(grads, cfg.clip_threshold, gnorm)
@@ -213,6 +235,18 @@ class PosteriorJointTrainer:
         self._synced = {k: p.detach().clone() for k, p in self.params.items()}
         self.decoder.weights = self._merged(self._synced)
         return loss.detach(), acc, gnorm.detach()
+
+    def _pooled(self, grads, loss, acc):
+        """The gradients, the loss and the accuracy summed over the mesh's
+        ranks in one ``all_reduce`` (the accuracy as the mean of the ranks'
+        means)."""
+        flat = torch.cat([g.reshape(-1) for g in grads] +
+                         [loss.detach().reshape(1),
+                          (acc / self.mesh.size).reshape(1)])
+        parts = self.mesh.all_reduce(flat).split(
+            [g.numel() for g in grads] + [1, 1])
+        return ([p.view_as(g) for p, g in zip(parts, grads)],
+                parts[-2][0], parts[-1][0])
 
     @torch.no_grad()
     def _eval_step(self, llr, targets):

@@ -2,7 +2,7 @@
 (``make_decoder``, the ``Decoder`` call, ``make_two_checkpoint_decoder``)
 with the bench's decoder arguments, against ``ldpc_tpu`` with the same
 arguments; plus the channel, the jax-free import, the device default, and
-the refusals of the routes not ported yet (``mesh=``, parallel/).
+the routes ported after the main path (training, the engines, ``mesh=``).
 
 The code is a 2x6 full base with lift 32 (the bench's 5x37, lift 256
 shape class, cut to CPU size). Messages are f32 so that hard outputs can be
@@ -21,6 +21,7 @@ import torch
 import ldpc_tpu
 import ldpc_tpu_torch as lt
 from ldpc_tpu.decode.qc_engine import build_qc_graph as jax_build_qc_graph
+from ldpc_tpu_torch.parallel import make_mesh
 from torch_port_helpers import channel_llr, make_base
 
 T, T1 = 6, 3
@@ -101,7 +102,11 @@ def test_port_imports_without_jax():
             "import ldpc_tpu_torch, ldpc_tpu_torch.decode._build, "
             "ldpc_tpu_torch.zoo, ldpc_tpu_torch.sim, ldpc_tpu_torch.design, "
             "ldpc_tpu_torch.report, ldpc_tpu_torch.encode, "
-            "ldpc_tpu_torch.sim.importance, ldpc_tpu_torch.utils; "
+            "ldpc_tpu_torch.sim.importance, ldpc_tpu_torch.utils, "
+            "ldpc_tpu_torch.parallel, ldpc_tpu_torch.parallel.launch, "
+            "ldpc_tpu_torch.cli.examples, ldpc_tpu_torch.cli.comprehensive, "
+            "ldpc_tpu_torch.cli.generate_images, "
+            "ldpc_tpu_torch.cli.graft_entry; "
             "assert 'ldpc_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True)
 
@@ -126,10 +131,12 @@ def test_unported_routes_refuse(tmp_path):
         (mk(qc=qc, qc_options=fused), dict(ste=True)),
     ]:
         assert dec(llr, **kw).bits.shape == (2, code.n)
-    # data-parallel training waits for parallel/
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        lt.PosteriorJointTrainer(lt.neural_min_sum(code, device="cpu"),
-                                 mesh=object())
+    # data-parallel training (parallel/) runs on a one-rank mesh
+    mesh = make_mesh(devices="cpu")
+    tr = lt.PosteriorJointTrainer(lt.neural_min_sum(code, device="cpu"),
+                                  mesh=mesh)
+    x = torch.full((2, code.n), 4.0)
+    assert all(torch.isfinite(v) for v in tr.train_step(x, x * 0))
     # the QC engines and the general, layered and bucketed engines run
     # (every inference route and the simulator's compaction over the
     # engines are ported)
@@ -142,10 +149,11 @@ def test_unported_routes_refuse(tmp_path):
         dec = mk(qc=qc, qc_options=dict(check_every=2))
         assert lt.simulate_single_snr(
             dec, 3.0, lt.SimulationConfig(**cfg, **sim_kw))[3] == 4
-    # the simulator's unported path: mesh sharding; its plots draw
-    # through report/
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        lt.LDPCSimulator(lt.SimulationConfig(**cfg), mesh=object())
+    # the simulator shards its waves over a mesh (parallel/); its plots
+    # draw through report/
+    res = lt.LDPCSimulator(lt.SimulationConfig(**cfg), mesh=mesh
+                           ).simulate_decoder(mk(qc=qc), verbose=False)
+    assert res.total_frames == [4] * len(res.snr_values)
     sim = lt.LDPCSimulator(lt.SimulationConfig(**cfg))
     res = lt.SimulationResult("MS", [1.0, 2.0])
     res.add_result(0, 0.5, 0.1, 5.0, 1.0, 1000, 500)

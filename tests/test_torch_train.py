@@ -254,8 +254,13 @@ def test_trainer_refusals():
         lt.PosteriorJointTrainer(dec, lt.TrainingConfig(lr_schedule="cosine"))
     with pytest.raises(ValueError, match="lr_schedule"):
         lt.PosteriorJointTrainer(dec, lt.TrainingConfig(lr_schedule="nope"))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        lt.PosteriorJointTrainer(dec, mesh=object())
+    # a mesh (parallel/) must hold the decoder's kind of device and divide
+    # the batch; a one-rank mesh trains
+    from ldpc_tpu_torch.parallel import Mesh, make_mesh
+    with pytest.raises(ValueError, match="batch_size"):
+        lt.PosteriorJointTrainer(dec, mesh=Mesh(3, 0, torch.device("cpu")))
+    assert lt.PosteriorJointTrainer(
+        dec, mesh=make_mesh(devices="cpu")).mesh.size == 1
     with pytest.raises(ValueError, match="no trainable weights"):
         lt.GradientExplosionAnalyzer(lt.basic_min_sum(code, device="cpu"))
 

@@ -23,8 +23,6 @@ it is autograd over the engines' PyTorch ops. Tolerances:
 - a trainer's weights after 3 Adam steps rtol 1e-6 / atol 1e-6.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -77,8 +75,7 @@ def _decoder(route, kind, device):
 
 
 def _cpu_twin(dec):
-    return dataclasses.replace(dec, device=torch.device("cpu")
-                               ).replace_weights(dec.weights)
+    return dec.to("cpu")
 
 
 def _llr(n, seed, device, batch=B):
