@@ -130,6 +130,23 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    ``generate_images``' comparison at 1024 frames and its DE figure (the DE
    curves are host numpy, computed in the worker process beside phases
    1-12; without matplotlib the figures' data is checked and not drawn).
+14. the throughput programs' twins (``ldpc_tpu_torch/cli/``): (a)
+   ``python -m ldpc_tpu_torch.cli.bench`` in a process of its own, its last
+   line ``bench.py``'s metric line (the name read from ``bench.py``, a rate
+   above 0), no frame error and every wave's survivors within 128; (b)
+   the matrix twin (``throughput_matrix.run``) at the JAX program's
+   batches and ``--reps 10``, one entry a call: each fused entry (the bench
+   code layered T=6 and flooding T=10 at B=8192, DVB-S2-structure (16200,
+   7200) at B=4096, Tanner (155, 64) at B=16384, QC PBRL (3096, 1032) T=10
+   at B=8192) launching K1 or K4 exactly once a decode, its first 64
+   frames through the kernel held to the plain version bit for bit in f32
+   and bf16 with the rules of phase 3, its kernel timed alone against the
+   plain version and the bound, with its registers, spills, shared memory,
+   check-state placement and CTAs per SM; the general and bucketed engines
+   on PBRL (3096, 1032) at B=2048 with no kernel launch, and their ratio;
+   each entry's rate, frame errors, LLR bytes and peak memory; (c) the
+   batch study (``ee_batch.run``) at B = 16384, 32768 and 65536 with no
+   overflow and 2 K1 launches a wave.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -291,6 +308,10 @@ P13_WAVE = dict(NF_CONFIG, early_exit_iters=None, survivor_budget=None,
                 stage1_fused=False)
 P13_GLOO_WAVE, P13_GLOO_B, P13_SEED = 2 * 4096, 2 * 16384, 13
 P13_STEP_RTOL = 1e-5
+# phase 14: the throughput programs' twins (ldpc_tpu_torch/cli/): the
+# matrix at the JAX program's --reps default, each fused entry's first
+# P14_FRAMES frames held to the plain version
+P14_REPS, P14_FRAMES = 10, 64
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -667,30 +688,32 @@ def ptxas_stats(log):
     return out
 
 
-def kernel_facts(key, ctas):
-    """One line on the bf16 instance of a kernel that the main path runs:
-    its registers and spills (ptxas) and its resident CTAs per SM."""
+def instance_facts(label, inst, ctas):
+    """One line on a kernel instance (a prefix of its mangled name): its
+    registers and spills (the build's ptxas report) and its resident CTAs
+    per SM."""
     from ldpc_tpu_torch.decode import _build
-    inst = {"fused_layered":
-                "fused_layered_kernelI13__nv_bfloat16Li2ELi768ELb1E",
-            "fused_flooding":
-                "fused_flooding_kernelI13__nv_bfloat16Li4ELi768E",
-            "qc_cn": "qc_cn_kernelI13__nv_bfloat16Li4ELb1E",
-            "qc_vn": "qc_vn_kernelI13__nv_bfloat16Li5E"}[key]
     stats = ptxas_stats(_build.library_path().with_suffix(".log"))
     st = next((v for k, v in stats.items() if inst in k), {})
-    what = {"qc_vn": ", dv=5", "fused_flooding": ", orcq, L <= 768",
-            "fused_layered": ", rcq, L <= 768, state on chip",
-            "qc_cn": ", orcq, dc <= 64"}.get(key, "")
-    return (f"  {key} (bf16{what}): "
-            f"{st.get('registers')} registers, spill stores/loads "
-            f"{st.get('spills')} B, {ctas} resident CTAs per SM")
+    return (f"  {label}: {st.get('registers')} registers, spill "
+            f"stores/loads {st.get('spills')} B, {ctas} resident CTAs per SM")
+
+
+def kernel_facts(key, ctas):
+    """One line on the bf16 instance of a row/column kernel that the main
+    path runs."""
+    inst = {"qc_cn": "qc_cn_kernelI13__nv_bfloat16Li4ELb1E",
+            "qc_vn": "qc_vn_kernelI13__nv_bfloat16Li5E"}[key]
+    what = {"qc_vn": ", dv=5", "qc_cn": ", orcq, dc <= 64"}[key]
+    return instance_facts(f"{key} (bf16{what})", inst, ctas)
 
 
 def k1_facts(dec, card):
-    """K1's registers and spills (bf16 instance of the decoder's kind),
-    shared memory per CTA and resident CTAs per SM at ``dec``'s shape, as
-    the library lays it out."""
+    """K1's registers and spills (the bf16 instance of the decoder's kind,
+    lift class and check-state placement), shared memory per CTA and
+    resident CTAs per SM at ``dec``'s shape, with the placement the
+    wrapper takes: the check state on chip where it fits the card's
+    shared memory, else in the per-frame device scratch."""
     from ldpc_tpu_torch.decode import _build, fused
     from ldpc_tpu_torch.decode.engine import qdq_mode
     qc, spec = dec.qc, dec.spec
@@ -701,11 +724,43 @@ def k1_facts(dec, card):
              spec.q_levels,
              fused._QMODES[qdq_mode(spec.v2c_qparams, spec.v2c_levels)],
              spec.v2c_levels)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    onchip = int(lib.ldpc_fused_layered_smem(*sizes, *modes, 1) <= limit)
     ctas = lib.ldpc_fused_layered_occupancy(*sizes, fused._KINDS[spec.kind],
-                                            *modes, 1)
-    return (kernel_facts("fused_layered", ctas) +
-            f", {lib.ldpc_fused_layered_smem(*sizes, *modes, 1)} B of "
-            f"shared memory per CTA  [{card}]")
+                                            *modes, onchip)
+    kind, L = fused._KINDS[spec.kind], qc.lift
+    maxt = 768 if L <= 768 else 1024
+    inst = (f"fused_layered_kernelI13__nv_bfloat16Li{kind}ELi{maxt}"
+            f"ELb{onchip}ELb{int(L > 1024)}E")
+    return (instance_facts(
+        f"fused_layered (bf16, {spec.kind}, L={L}, MAXT={maxt}, state "
+        f"{'on chip' if onchip else 'in device scratch'})", inst, ctas) +
+        f", {lib.ldpc_fused_layered_smem(*sizes, *modes, onchip)} B of "
+        f"shared memory per CTA, {min(L, 1024)} threads per CTA  [{card}]")
+
+
+def k4_facts(dec, card):
+    """K4's registers and spills (the bf16 instance of the decoder's kind
+    and lift class), shared memory per CTA and resident CTAs per SM at
+    ``dec``'s shape."""
+    from ldpc_tpu_torch.decode import _build, fused
+    from ldpc_tpu_torch.decode.engine import qdq_mode
+    spec, qc = dec.spec, dec.qc
+    lib = _build.load_library()
+    sizes = (qc.nb, qc.mb, qc.num_blocks, qc.lift, 1)
+    modes = (fused._QMODES[qdq_mode(spec.qparams, spec.q_levels)],
+             spec.q_levels,
+             fused._QMODES[qdq_mode(spec.v2c_qparams, spec.v2c_levels)],
+             spec.v2c_levels)
+    kind, L = fused._KINDS[spec.kind], qc.lift
+    ctas = lib.ldpc_fused_flooding_occupancy(*sizes, kind, *modes)
+    maxt = 768 if L <= 768 else 1024
+    inst = (f"fused_flooding_kernelI13__nv_bfloat16Li{kind}ELi{maxt}"
+            f"ELb{int(L > 1024)}E")
+    return (instance_facts(f"fused_flooding (bf16, {spec.kind}, L={L}, "
+                           f"MAXT={maxt})", inst, ctas) +
+            f", {lib.ldpc_fused_flooding_smem(*sizes, *modes)} B of shared "
+            f"memory per CTA  [{card}]")
 
 
 def reset_counts():
@@ -1779,20 +1834,158 @@ def phase13(dev, card, dec, wave_ms, de):
     return counts
 
 
+def phase14_bench(card, root):
+    """(a) The bench twin as users run it, in a process of its own: its
+    last line is ``bench.py``'s metric line (the metric name read from
+    ``bench.py``), with a rate above 0, no frame error on phase 4's three
+    LLR sets and every wave's survivors within the budget."""
+    import re
+    with open(os.path.join(root, "bench.py")) as f:
+        metric = re.search(r'"metric": "(\w+)"', f.read()).group(1)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ldpc_tpu_torch.cli.bench"],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=600, env=dict(os.environ, PYTHONPATH=root))
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or len(lines) < 3:
+        raise AssertionError(f"the bench twin failed (rc {r.returncode}):\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    line, stats = json.loads(lines[-1]), json.loads(lines[-2])
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} or \
+            line["metric"] != metric or \
+            line["unit"] != "codewords/sec/chip" or not line["value"] > 0:
+        raise AssertionError(f"the bench twin's last line: {lines[-1]}")
+    if any(stats["frame_errors_per_set"]) or stats["max_survivors"] > S:
+        raise AssertionError(f"the bench twin's waves: {lines[-2]}")
+    print(f"  (a) python -m ldpc_tpu_torch.cli.bench: rc 0, "
+          f"{time.perf_counter() - t0:.1f} s; {lines[-3]}; {lines[-2]}")
+    print(f"  (a) its last line: {lines[-1]}  [{card}]")
+
+
+def phase14_matrix(dev, card, tmp):
+    """(b) The matrix twin at the JAX program's batches, one entry a call
+    of its ``run`` (the two engine entries in one, for their ratio): each
+    fused entry launches its kernel exactly once a decode, its first
+    P14_FRAMES frames go through the kernel and the plain version bit for
+    bit in f32 and bf16, and its kernel is timed alone against the plain
+    version and the bound. Returns the launches and the largest posterior
+    differences measured before the checks."""
+    from ldpc_tpu_torch.cli import throughput_matrix as tm
+
+    entries = tm.matrix_decoders(dev)
+    engines = {k: entries.pop(k) for k in tm.ENGINE_ENTRIES}
+    out = dict(K1=0, K4=0, k1_err=0.0, k4_err=0.0)
+    want = 2 + 3 * P14_REPS
+    for name, entry in list(entries.items()) + [("engines", engines)]:
+        group = engines if name == "engines" else {name: entry}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res = tm.run(reps=P14_REPS, out_path=os.path.join(
+            tmp, f"{name}.json"), verbose=False, device=dev, entries=group)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for key, (dec, B, snr) in group.items():
+            llr = tm.make_llr(dec, B, snr)
+            wrong = uncounted(lambda: dec(llr).bits.ne(0))
+            fe, ber = int(wrong.any(dim=1).sum()), wrong.float().mean().item()
+            raw = (llr < 0).float().mean().item()
+            del wrong
+            cw = res[key]["cw_per_sec"]
+            print(f"  (b) {key}: {cw:.1f} cw/s, a decode "
+                  f"{1e3 * B / cw:.3f} ms (B={B}, n={dec.code.n}, {snr} dB, "
+                  f"LLRs {llr.numel() * 4 / 1e6:.1f} MB, peak "
+                  f"{peak:.3f} GiB), frame errors {fe} of {B}, BER "
+                  f"{ber:.3g} (channel {raw:.3g})  [{card}]")
+            if not ber < raw:
+                raise AssertionError(f"{key}: the decode leaves BER {ber} "
+                                     f"of the channel's {raw}")
+            if name == "engines":
+                continue
+            flooding = not dec.layered
+            kid = "K4" if flooding else "K1"
+            if counts[kid] != want or sum(counts.values()) != want:
+                raise AssertionError(f"{key}: launches {counts}, want {want} "
+                                     f"of {kid}")
+            out[kid] += counts[kid]
+            err = uncounted(lambda: max(
+                compare(key, dec, llr[:P14_FRAMES], dt, False, flooding)
+                for dt in (torch.float32, torch.bfloat16)))
+            out[f"{kid.lower()}_err"] = max(out[f"{kid.lower()}_err"], err)
+            x = llr.to(torch.bfloat16)
+            T_ = dec.max_iterations
+            kern = lambda: kernel_on(x, dec, T_, False, flooding)
+            plain = lambda: plain_on(x, dec, T_, False, flooding)
+            k_ms, p_ms, k2_ms = uncounted(lambda: (
+                time_ms(kern, 5), time_ms(plain, 1), time_ms(kern, 5)))
+            b_ms, b_by = bound(dec, B, T_, flooding, lean=False)
+            print(f"  (b) {key}: {kid} {counts[kid]} launches; kernel alone "
+                  f"(bf16, full) {k_ms:.3f} / {k2_ms:.3f} ms, plain "
+                  f"{p_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), "
+                  f"{100 * b_ms / min(k_ms, k2_ms):.1f}% of the bound  "
+                  f"[{card}]")
+            print(k4_facts(dec, card) if flooding else k1_facts(dec, card))
+            del x
+        if name == "engines":
+            if sum(counts.values()):
+                raise AssertionError(f"the engine entries launched {counts}")
+            print(f"  (b) bucketed speedup {res['bucketed_speedup']}x  "
+                  f"[{card}]")
+        del llr
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase14_ee(dev, card, tmp):
+    """(c) The batch study: each (B, S) point timed with 2 K1 launches a
+    wave and no overflow at 7.0 dB. Returns K1's launches."""
+    from ldpc_tpu_torch.cli import bench, ee_batch
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ee_batch.run(dev, ee_batch.POINTS,
+                       out_path=os.path.join(tmp, "ee_batch.json"))
+    counts = read_counts()
+    waves = len(ee_batch.POINTS) * (bench.WARMUP + bench.TRIALS * bench.REPS)
+    if len(res) != len(ee_batch.POINTS) or counts["K1"] != 2 * waves or \
+            counts["K4"] or counts["K5"] or counts["K6"]:
+        raise AssertionError(f"the batch study: {res}, launches {counts}")
+    print(f"  (c) the batch study: {len(res)} points, "
+          f"{time.perf_counter() - t0:.1f} s, K1 launches {counts['K1']}; "
+          + ", ".join(f"{k} {v:.1f} cw/s" for k, v in res.items())
+          + f"  [{card}]")
+    return counts["K1"]
+
+
+def phase14(dev, card):
+    """The throughput programs' twins; returns their K1 and K4 launches
+    in this process and the largest posterior differences."""
+    import tempfile
+
+    print("[14 throughput twins]")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    phase14_bench(card, root)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        out = phase14_matrix(dev, card, tmp)
+        torch.cuda.empty_cache()
+        out["K1"] += phase14_ee(dev, card, tmp)
+    print(f"  launches in phase 14: K1 {out['K1']}, K4 {out['K4']}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def run(design, de):
-    """Phases 1-13; ``design`` and ``de`` are the result handles of
+    """Phases 1-14; ``design`` and ``de`` are the result handles of
     :func:`bench_design` and :func:`de_data` running in a worker
     process."""
     import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.cli.bench import device_line
     from ldpc_tpu_torch.decode import _build, two_checkpoint_stages
     from ldpc_tpu_torch.sim import point_generator
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
+    card = device_line(dev)
     print(f"[1 device] {card}  (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
 
@@ -1976,20 +2169,7 @@ def run(design, de):
               f"({b_by})  [{card}]")
     del xs, x
     torch.cuda.empty_cache()
-    from ldpc_tpu_torch.decode import fused
-    from ldpc_tpu_torch.decode.engine import qdq_mode
-    spec, zqc = zdec.spec, zdec.qc
-    lib = _build.load_library()
-    sizes = (zqc.nb, zqc.mb, zqc.num_blocks, zqc.lift, 1)
-    modes = (fused._QMODES[qdq_mode(spec.qparams, spec.q_levels)],
-             spec.q_levels,
-             fused._QMODES[qdq_mode(spec.v2c_qparams, spec.v2c_levels)],
-             spec.v2c_levels)
-    ctas = lib.ldpc_fused_flooding_occupancy(
-        *sizes, fused._KINDS[spec.kind], *modes)
-    print(kernel_facts("fused_flooding", ctas) +
-          f", {lib.ldpc_fused_flooding_smem(*sizes, *modes)} B of shared "
-          f"memory per CTA  [{card}]")
+    print(k4_facts(zdec, card))
 
     # ---- 6: the simulator at full width on the zoo decoder
     cfg = lt.SimulationConfig(**SIM_CONFIG)
@@ -2071,6 +2251,8 @@ def run(design, de):
     p12_launches, p12_err = phase12(dev, card, design)
     torch.cuda.empty_cache()
     p13 = phase13(dev, card, dec, 1e3 * secs / n_timed, de)
+    torch.cuda.empty_cache()
+    p14 = phase14(dev, card)
 
     print(card)
     k4 = k4_times[SIM_WAVE]
@@ -2079,8 +2261,8 @@ def run(design, de):
         "route": "cuda",
         "source": "ldpc_tpu_torch/csrc/fused_layered.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
-        "launches": launches + p12_launches + p13["K1"],
-        "max_abs_err": max(max_err, p12_err),
+        "launches": launches + p12_launches + p13["K1"] + p14["K1"],
+        "max_abs_err": max(max_err, p12_err, p14["k1_err"]),
         "ms": times[256][0],
         "plain_ms": times[256][1],
         "bound_ms": k1_bound[0],
@@ -2091,8 +2273,8 @@ def run(design, de):
         "route": "cuda",
         "source": "ldpc_tpu_torch/csrc/fused_flooding.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:195",
-        "launches": k4_launches + p13["K4"],
-        "max_abs_err": k4_err,
+        "launches": k4_launches + p13["K4"] + p14["K4"],
+        "max_abs_err": max(k4_err, p14["k4_err"]),
         "ms": k4[0],
         "plain_ms": k4[1],
         "bound_ms": k4[2],
