@@ -147,6 +147,29 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    each entry's rate, frame errors, LLR bytes and peak memory; (c) the
    batch study (``ee_batch.run``) at B = 16384, 32768 and 65536 with no
    overflow and 2 K1 launches a wave.
+15. the FER campaign programs' twins (``ldpc_tpu_torch/cli/``) at their
+   full width (the bench code, lift 256; the programs' waves, budgets and
+   error targets; only SNR points and frame caps cut, each cut printed):
+   first K1 at the four layered T=6 specs (RCQ bc=3, RCQ bc=4, float
+   min-sum, the zoo's trained W-OMS-RCQ) and K4 at the trained flooding
+   T=10 spec held to their plain versions bit for bit at both depths of
+   their compaction (64 frames at 6.5 dB, bf16, full output) and timed at
+   the campaign's shapes against their bounds; (a) ``deep_fer``'s
+   decoders through ``sweep`` (32768-frame waves, budget 2048, 100
+   errors, a 6e7-frame cap): RCQ-bc3-L6 at 6.4, 6.5 and 6.6 dB, RCQ-bc4-L6
+   at 6.5, float-MS-L6 at 6.4 ({3, 6}, K1) and the trained flooding
+   decoder at 6.4 and 6.5 ({5, 10}, K4); (b) ``deep_fer_trained_l6`` at 6.4
+   and 6.5 dB ({2, 6}, K1), each point's frames/s and wave kinds printed
+   and the launches checked against the waves (2 a compacted wave, 4 a
+   fallback); (c) ``accuracy_bc3``: the full dev sweep (K4), ``train_pair``
+   cut to one epoch of 256 frames (no launch) and the waterfall on the
+   JAX run's 2-4-6@1.3 at 16,384 frames a point (K4, once a wave); (d)
+   ``fer_parity`` at 16,384 frames a point (the general engine, no
+   launch). Every requested decoder must have its curve, and every point
+   whose JAX record (``experiments/*_results.json``, read as data) has
+   at least 20 errors and 20 successes must pass Fisher's exact test
+   against it at p >= 1e-3 (the trained decoders of (c), cut-trained,
+   are printed, not tested).
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -312,6 +335,28 @@ P13_STEP_RTOL = 1e-5
 # matrix at the JAX program's --reps default, each fused entry's first
 # P14_FRAMES frames held to the plain version
 P14_REPS, P14_FRAMES = 10, 64
+# phase 15: the FER campaign programs' twins (ldpc_tpu_torch/cli/) at their
+# full width (lift 256, their waves, budgets and error targets); only SNR
+# points and frame caps are cut. The deep-FER points (decoder, SNRs); the
+# frame cap is deep_fer.py's 5e7 raised to 6e7, above the JAX record's
+# 54,034,432 frames for RCQ-bc3-L6 at 6.6 dB
+P15_DEEP = (("RCQ-bc3-L6", (6.4, 6.5, 6.6)), ("RCQ-bc4-L6", (6.5,)),
+            ("float-MS-L6", (6.4,)), ("W-OMS-RCQ-bc3-trained", (6.4, 6.5)))
+P15_L6_SNRS, P15_CAP = (6.4, 6.5), 6 * 10 ** 7
+P15_LIFT, P15_WAVE = 256, 32768
+# accuracy_bc3: the full dev sweep, train_pair cut to one epoch of 256
+# frames (2 steps a decoder), the waterfall on the JAX run's ladder;
+# fer_parity and the waterfall at 16,384 frames a point
+P15_LADDER, P15_TRAIN, P15_FRAMES = "2-4-6@1.3", dict(epochs=1,
+                                                      num_samples=256), 16384
+# a point is held to the JAX record's by the two-sided p of Fisher's exact
+# test where the record has at least P15_MIN errors and P15_MIN successes.
+# K1 and K4 are first held to their plain versions at the campaign's
+# shapes: stage 2 on the survivor budget's frames at every spec, stage 1 on
+# the whole wave at the P15_WAVE_CHECK specs (one a kernel; P14_FRAMES
+# frames at the others)
+P15_MIN, P15_P, P15_CHECK_SNR = 20, 1e-3, 6.5
+P15_WAVE_CHECK = ("RCQ-bc3-L6", "W-OMS-RCQ-bc3-trained")
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -1974,8 +2019,296 @@ def phase14(dev, card):
     return out
 
 
+def jax_points(curve):
+    """{SNR to 0.01 dB: (frame errors, frames)} of a committed JAX curve."""
+    return {round(s, 2): (e, f) for s, e, f in zip(
+        curve["snr_values"], curve["total_errors"], curve["total_frames"])}
+
+
+def fisher_p(errors, frames, ref_errors, ref_frames):
+    """Two-sided p of Fisher's exact test that two FER points (frame
+    errors in frames) share one FER: the probability, under the
+    hypergeometric law of the 2x2 table's margins, of every table no more
+    likely than this one (relative tolerance 1e-7), as
+    ``scipy.stats.fisher_exact`` computes it, in numpy alone: scipy's
+    array-API layer trips over this script's ``jax`` sentinel."""
+    a, n1, n2 = errors, frames, ref_frames
+    k = errors + ref_errors
+    lo, hi = max(0, k - n2), min(k, n1)
+    x = np.arange(lo, hi, dtype=np.float64)
+    # log P(x + 1) - log P(x), summed from the lowest table up
+    step = (np.log((k - x) * (n1 - x)) -
+            np.log((x + 1) * (n2 - k + x + 1)))
+    logp = np.concatenate([[0.0], np.cumsum(step)])
+    p = np.exp(logp - logp.max())
+    p /= p.sum()
+    return float(min(1.0, p[p <= p[a - lo] * (1 + 1e-7)].sum()))
+
+
+class FisherBook:
+    """Each SNR point of the port against the JAX record's: the lines,
+    and the points whose two-sided Fisher p falls below P15_P."""
+
+    def __init__(self, card):
+        self.card, self.failed, self.tested = card, [], 0
+
+    def curves(self, tag, results, record, test=True, extra=None):
+        """Print every point of ``results`` ({name: SimulationResult})
+        beside ``record`` ({name: JAX curve dict}); Fisher-test them when
+        ``test``. ``extra(name, i)`` adds to a point's line."""
+        for name, r in results.items():
+            ref = jax_points(record[name])
+            for i, snr in enumerate(r.snr_values):
+                e, f = r.total_errors[i], r.total_frames[i]
+                je, jf = ref.get(round(snr, 2), (None, None))
+                line = (f"  ({tag}) {name} @ {snr:.2f} dB: {e}/{f} "
+                        f"(FER {e / f:.4g}), JAX {je}/{jf}")
+                if je is None:
+                    raise AssertionError(f"no JAX point for {name} @ {snr}")
+                if test and min(je, jf - je) >= P15_MIN:
+                    p = fisher_p(e, f, je, jf)
+                    self.tested += 1
+                    line += f", Fisher p {p:.3g}"
+                    if p < P15_P:
+                        self.failed.append(f"{name} @ {snr:.2f} dB: p {p:.3g}")
+                else:
+                    line += (", not tested (cut-trained here)" if not test
+                             else f", not tested (JAX {je} errors)")
+                if extra is not None:
+                    line += extra(name, i)
+                print(line + f"  [{self.card}]")
+
+
+def phase15_kernels(dev, card, decs):
+    """K1 and K4 against their plain versions at each deep-FER spec and
+    both depths of its compaction ({t1, T}) at P15_CHECK_SNR in bf16 with
+    the full output (comparison launches, not counted): stage 2 on the
+    2048-frame survivor budget, stage 1 on the 32768-frame wave at the
+    P15_WAVE_CHECK specs and on P14_FRAMES frames at the others. Each
+    depth is timed at the campaign's shape against its bound. Returns the
+    largest posterior differences and {(name, T): kernel ms}."""
+    import ldpc_tpu_torch as lt
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    wave, budget = P15_WAVE, max(64, P15_WAVE // 16)
+    errs, times = dict(K1=0.0, K4=0.0), {}
+    for name, (dec, t1) in decs.items():
+        flooding = not dec.layered
+        kid = "K4" if flooding else "K1"
+        x = lt.awgn_llr(gen, torch.zeros((wave, dec.code.n), device=dev),
+                        P15_CHECK_SNR).to(torch.bfloat16)
+        short = dataclasses.replace(dec, qc_options=None).truncated(t1)
+        for d, B_ in ((short, wave), (dec, budget)):
+            T_ = d.max_iterations
+            xb = x[:B_]
+            xc = xb if d is dec or name in P15_WAVE_CHECK else \
+                x[:P14_FRAMES]
+            out = uncounted(lambda: kernel_on(xc, d, T_, False, flooding))
+            ref = plain_on(xc, d, T_, False, flooding)
+            errs[kid] = max(errs[kid], agree(f"{name} T={T_}", out, ref,
+                                             torch.bfloat16))
+            del out, ref
+            torch.cuda.empty_cache()
+            k_ms = uncounted(lambda: time_ms(
+                lambda: kernel_on(xb, d, T_, False, flooding), 5))
+            b_ms, b_by = bound(d, B_, T_, flooding, lean=False)
+            times[(name, T_)] = k_ms
+            print(f"  {kid} {name} B={B_} T={T_} (bf16, full): {k_ms:.3f} "
+                  f"ms, bound {b_ms:.3f} ms ({b_by}), "
+                  f"{100 * b_ms / k_ms:.1f}% of the bound  [{card}]")
+        print(k4_facts(dec, card) if flooding else k1_facts(dec, card))
+        del x, xb, xc
+    return errs, times
+
+
+def phase15_deep(dev, card, book, record, zoo, times):
+    """(a), (b): each deep-FER decoder of ``zoo`` ({name: (decoder, t1,
+    SNRs, program)}) swept over its SNRs by the twin's ``sweep`` under the
+    campaign's configuration, only the kernels launching; returns the
+    launches."""
+    from ldpc_tpu_torch.cli import deep_fer
+
+    print(f"  (a, b) cut: SNRs {dict((k, v[2]) for k, v in zoo.items())} "
+          f"of 6.4-6.7 dB; frame cap {P15_CAP:,} (the programs' "
+          f"50,000,000); waves {P15_WAVE}, budget "
+          f"{max(64, P15_WAVE // 16)}, 100 errors")
+    t0 = time.perf_counter()
+    reset_counts()
+    deep, kinds, want = {}, {}, dict(K1=0, K4=0, K5=0, K6=0)
+    for name, (dec, t1, snrs, _) in zoo.items():
+        cfg = deep_fer.campaign_config(t1, P15_CAP, wave=P15_WAVE,
+                                       snr_lo=min(snrs), snr_hi=max(snrs),
+                                       device=dev)
+        res, sim = deep_fer.sweep({name: dec}, cfg, checkpoints=None,
+                                  verbose=False)
+        if list(res) != [name] or [round(x, 2) for x in
+                                   res[name].snr_values] != list(snrs):
+            raise AssertionError(f"{name}: curves {res}")
+        deep[name], kinds[name] = res[name], sim.wave_kinds[name]
+        # a compacted wave launches stage 1 and stage 2, a fallback both
+        # again on the whole wave
+        want["K1" if dec.layered else "K4"] += sum(
+            2 * k.get("compacted", 0) + 4 * k.get("fallback", 0)
+            for k in kinds[name])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != want or not (want["K1"] and want["K4"]):
+        raise AssertionError(f"deep-FER launches {counts}, want {want}")
+
+    def rate(name, i):
+        r = deep[name]
+        return (f", {r.total_frames[i] / r.simulation_times[i]:.1f} "
+                f"frames/s ({r.simulation_times[i]:.2f} s), avg iterations "
+                f"{r.average_iterations[i]:.4f}, waves {kinds[name][i]}")
+
+    for name, (_, _, _, prog) in zoo.items():
+        curves = record[prog].get("curves") or {name: record[prog]["curve"]}
+        book.curves("a" if prog == "deep_fer" else "b", {name: deep[name]},
+                    curves, extra=rate)
+    print(f"  (a) RCQ-bc3-L6 floor verdict over 6.4-6.6 dB: "
+          f"{deep_fer.floor_verdict(deep['RCQ-bc3-L6'])}")
+    n_comp = sum(k.get("compacted", 0) for v in kinds.values() for k in v)
+    n_fall = sum(k.get("fallback", 0) for v in kinds.values() for k in v)
+    print(f"  (a, b) {time.perf_counter() - t0:.1f} s; launches K1 "
+          f"{counts['K1']}, K4 {counts['K4']}; waves compacted {n_comp}, "
+          f"fallback {n_fall}")
+    # where a compacted wave's time goes at 6.6 dB
+    r, k = deep["RCQ-bc3-L6"], kinds["RCQ-bc3-L6"][-1]
+    if set(k) == {"compacted"}:
+        per = 1e3 * r.simulation_times[-1] / k["compacted"]
+        st = [times[("RCQ-bc3-L6", T_)] for T_ in (3, 6)]
+        print(f"  (a) RCQ-bc3-L6 @ {r.snr_values[-1]:.2f} dB: a compacted "
+              f"wave {per:.3f} ms; K1 stage 1 {st[0]:.3f} ms + stage 2 "
+              f"{st[1]:.3f} ms alone, the rest {per - sum(st):.3f} ms  "
+              f"[{card}]")
+    return counts
+
+
+def phase15_accuracy(dev, card, book, record):
+    """(c): the full dev sweep, ``train_pair`` cut to P15_TRAIN and the
+    waterfall on P15_LADDER at P15_FRAMES frames a point, K4 launching
+    once a wave and never while training; returns K4's launches."""
+    from ldpc_tpu_torch.cli import accuracy_bc3 as acc
+    from ldpc_tpu_torch.cli.fer_parity import gaps_report
+
+    t0 = time.perf_counter()
+    code, qc = acc.bench_code(P15_LIFT)
+    reset_counts()
+    best, dev_fers = acc.dev_sweep(code, qc, dev, verbose=False)
+    c_dev = read_counts()
+    jdev = record["accuracy_bc3"]["quantizer_ladder"]
+    print("  (c) dev sweep at 6.4 dB, 16384 frames a ladder: " +
+          ", ".join(f"{k} {v:.5f}" for k, v in dev_fers.items()) +
+          f"; selected {best} (JAX {jdev['selected']}: " +
+          ", ".join(f"{k} {v:.5f}" for k, v in jdev["dev_fers"].items()) +
+          f"); the waterfall pins the JAX run's {P15_LADDER}")
+    qp = acc.LADDERS[P15_LADDER]
+    reset_counts()
+    t1 = time.perf_counter()
+    trained = acc.train_pair(code, qc, qp, dev, verbose=False, **P15_TRAIN)
+    c_tr = read_counts()
+    print(f"  (c) train_pair cut to {P15_TRAIN}: final losses " +
+          ", ".join(f"{k} {v[1]:.5f}" for k, v in trained.items()) +
+          f", {time.perf_counter() - t1:.1f} s  [{card}]")
+    decs = acc.waterfall_decoders(code, qc, qp, trained, dev)
+    reset_counts()
+    fall = acc.waterfall(decs, P15_FRAMES, dev, verbose=False)
+    c_fall = read_counts()
+    if set(fall) != set(decs) or set(dev_fers) != set(acc.LADDERS):
+        raise AssertionError(f"curves {list(fall)} of {list(decs)}, dev "
+                             f"sweep {dev_fers}")
+    waves = dict(K1=0, K4=sum(f // acc.waterfall_config(
+        P15_FRAMES).wave_size for r in fall.values()
+        for f in r.total_frames), K5=0, K6=0)
+    cfg = acc.dev_config()
+    if c_dev != dict(waves, K4=len(acc.LADDERS) * cfg.max_frames //
+                     cfg.wave_size) or sum(c_tr.values()) or c_fall != waves:
+        raise AssertionError(f"accuracy launches: dev sweep {c_dev}, "
+                             f"training {c_tr}, waterfall {c_fall} "
+                             f"({waves['K4']} waves)")
+    jc = record["accuracy_bc3"]["curves"]
+    untrained = {k: v for k, v in fall.items() if "trained" not in k}
+    book.curves("c", untrained, jc)
+    book.curves("c", {k: v for k, v in fall.items() if k not in untrained},
+                jc, test=False)
+    _, gaps = gaps_report(fall, 1e-2, verbose=False)
+    print(f"  (c) gaps at FER 1e-2 {gaps} (JAX "
+          f"{record['accuracy_bc3']['gaps_db']}); "
+          f"{time.perf_counter() - t0:.1f} s, K4 launches "
+          f"{c_dev['K4'] + c_fall['K4']}")
+    return c_dev["K4"] + c_fall["K4"]
+
+
+def phase15_parity(dev, book, record, tmp):
+    """(d): the fer_parity twin at P15_FRAMES frames a point on the
+    general engine, no kernel launching."""
+    from ldpc_tpu_torch.cli import fer_parity
+    from ldpc_tpu_torch.sim import SimulationResult
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rep = fer_parity.run(P15_FRAMES, os.path.join(tmp, "fer_parity.json"),
+                         dev, verbose=False)
+    counts = read_counts()
+    jc = record["fer_parity"]["curves"]
+    if sum(counts.values()) or set(rep["curves"]) != set(jc):
+        raise AssertionError(f"fer_parity: launches {counts}, curves "
+                             f"{list(rep['curves'])}")
+    book.curves("d", {k: SimulationResult.from_dict(v)
+                      for k, v in rep["curves"].items()}, jc)
+    print(f"  (d) gaps at FER 1e-2 {rep['gaps_db']} (JAX "
+          f"{record['fer_parity']['gaps_db']}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase15(dev, card):
+    """The FER campaign programs' twins at full width; returns their K1
+    and K4 launches and the largest posterior differences."""
+    import tempfile
+
+    from ldpc_tpu_torch.cli import deep_fer
+    from ldpc_tpu_torch.cli import deep_fer_trained_l6 as l6
+
+    print("[15 FER campaign twins]")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    record = {}
+    for prog in ("deep_fer", "deep_fer_trained_l6", "accuracy_bc3",
+                 "fer_parity"):
+        with open(os.path.join(root, "experiments",
+                               f"{prog}_results.json")) as f:
+            record[prog] = json.load(f)
+    decs = dict(deep_fer.layered_decoders(P15_LIFT, dev))
+    decs["W-OMS-RCQ-bc3-trained"] = deep_fer.trained_flooding_decoder(
+        lift=P15_LIFT, device=dev)
+    zoo = {name: (decs[name], deep_fer.T1_LAYERED if decs[name].layered
+                  else deep_fer.T1_FLOODING, snrs, "deep_fer")
+           for name, snrs in P15_DEEP}
+    zoo[l6.NAME] = (l6.trained_layered_decoder(lift=P15_LIFT, device=dev),
+                    l6.T1, P15_L6_SNRS, "deep_fer_trained_l6")
+    errs, times = phase15_kernels(dev, card, {
+        name: (dec, t1) for name, (dec, t1, _, _) in zoo.items()})
+    torch.cuda.empty_cache()
+    book = FisherBook(card)
+    counts = phase15_deep(dev, card, book, record, zoo, times)
+    del zoo, decs
+    torch.cuda.empty_cache()
+    k4 = counts["K4"] + phase15_accuracy(dev, card, book, record)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        phase15_parity(dev, book, record, tmp)
+    print(f"  {book.tested} points Fisher-tested against the JAX records; "
+          f"launches in phase 15: K1 {counts['K1']}, K4 {k4}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if book.failed:
+        raise AssertionError(f"points off the JAX records (p < {P15_P}): "
+                             f"{book.failed}")
+    return dict(K1=counts["K1"], K4=k4, k1_err=errs["K1"],
+                k4_err=errs["K4"])
+
+
 def run(design, de):
-    """Phases 1-14; ``design`` and ``de`` are the result handles of
+    """Phases 1-15; ``design`` and ``de`` are the result handles of
     :func:`bench_design` and :func:`de_data` running in a worker
     process."""
     import ldpc_tpu_torch as lt
@@ -2253,6 +2586,8 @@ def run(design, de):
     p13 = phase13(dev, card, dec, 1e3 * secs / n_timed, de)
     torch.cuda.empty_cache()
     p14 = phase14(dev, card)
+    torch.cuda.empty_cache()
+    p15 = phase15(dev, card)
 
     print(card)
     k4 = k4_times[SIM_WAVE]
@@ -2261,8 +2596,9 @@ def run(design, de):
         "route": "cuda",
         "source": "ldpc_tpu_torch/csrc/fused_layered.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
-        "launches": launches + p12_launches + p13["K1"] + p14["K1"],
-        "max_abs_err": max(max_err, p12_err, p14["k1_err"]),
+        "launches": (launches + p12_launches + p13["K1"] + p14["K1"] +
+                     p15["K1"]),
+        "max_abs_err": max(max_err, p12_err, p14["k1_err"], p15["k1_err"]),
         "ms": times[256][0],
         "plain_ms": times[256][1],
         "bound_ms": k1_bound[0],
@@ -2273,8 +2609,8 @@ def run(design, de):
         "route": "cuda",
         "source": "ldpc_tpu_torch/csrc/fused_flooding.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:195",
-        "launches": k4_launches + p13["K4"] + p14["K4"],
-        "max_abs_err": max(k4_err, p14["k4_err"]),
+        "launches": k4_launches + p13["K4"] + p14["K4"] + p15["K4"],
+        "max_abs_err": max(k4_err, p14["k4_err"], p15["k4_err"]),
         "ms": k4[0],
         "plain_ms": k4[1],
         "bound_ms": k4[2],

@@ -1,4 +1,7 @@
 """Command-line twins of the root scripts (``examples.py``,
-``comprehensive_test.py``, ``generate_images.py``, ``__graft_entry__.py``),
-run as ``python -m ldpc_tpu_torch.cli.<name>``; each takes ``--device``
-(the card by default)."""
+``comprehensive_test.py``, ``generate_images.py``, ``__graft_entry__.py``,
+``bench.py``) and of the throughput and FER campaign programs of
+``experiments/`` (``throughput_matrix``, ``ee_batch``, ``fer_parity``,
+``accuracy_bc3``, ``deep_fer``, ``deep_fer_trained_l6``), run as
+``python -m ldpc_tpu_torch.cli.<name>``; each takes ``--device`` (the card
+by default) and writes its results outside ``experiments/``."""
