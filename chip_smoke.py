@@ -170,6 +170,28 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    at least 20 errors and 20 successes must pass Fisher's exact test
    against it at p >= 1e-3 (the trained decoders of (c), cut-trained,
    are printed, not tested).
+16. the bench-knob and short-schedule programs' twins
+   (``ldpc_tpu_torch/cli/``) at their full width (the bench code, lift
+   256; the programs' batches, budgets and waves; only SNR points, frame
+   caps and training steps cut, each cut printed), only K1 launching,
+   held first to its plain version bit for bit at each new spec (stage 1
+   at t1=2 of the trained L6, 2-4-6 and DDE decoders, lean, B=8192; stage
+   2 at S=1024 and at bench_dde's budget B=4096; the zoo's T=5 and T=4
+   tables and the cut-trained per-layer [T, 5] tables at B=8192), each
+   timed against its bound: (a) ``bench_ab_s`` at B=32768: every wave's
+   survivors within S, the same bits under S = 512, 256 and 128, the three
+   rates; (b) ``ee_trained`` at B=8192: the six survivor counts beside the
+   JAX record (the three at t1=2 Fisher-tested), the arms the counts
+   select and their rates; (c) ``bench_dde``: ``train`` cut to 2 steps
+   (no launch), then ``deep`` on the zoo's ``worcq_bc3_layered_t6_dde``
+   and the bench decoder (32768-frame waves, budget 4096, 100 errors;
+   RCQ-dde-L6 at 6.4-6.6 dB, the last capped at 2e7 frames, W-ORCQ-dde-L6
+   at 6.4 and 6.5 dB), each point's frames/s and wave kinds; (d)
+   ``train_layered_short``: the four arms cut to 2 steps each (no launch),
+   the FER table at 65,536 frames a point, RCQ-L6 and RCQ-L5
+   Fisher-tested, the zoo's T=5 and T=4 entries beside their recorded
+   FER. Points as in phase 15: p >= 1e-3 where the JAX record has at
+   least 20 errors and 20 successes.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -357,6 +379,24 @@ P15_LADDER, P15_TRAIN, P15_FRAMES = "2-4-6@1.3", dict(epochs=1,
 # frames at the others)
 P15_MIN, P15_P, P15_CHECK_SNR = 20, 1e-3, 6.5
 P15_WAVE_CHECK = ("RCQ-bc3-L6", "W-OMS-RCQ-bc3-trained")
+# phase 16: the bench-knob and short-schedule programs' twins
+# (ldpc_tpu_torch/cli/) at their full width: lift 256, the programs'
+# batches, budgets and waves; only SNR points, frame caps and training
+# steps are cut. bench_dde's deep points (decoder, SNRs, frame cap): its
+# 5e7 cap cut to 2e7 at 6.6 dB (the JAX record's FER 1.56e-6 expects
+# about 31 errors there); every training cut to one epoch of 256 frames
+# (2 steps). K1 is held to its plain version first at every (decoder,
+# iterations, batch) the part launches: each stage 1 and whole decode at
+# the part's batch, each stage 2 at its budget
+P16_DEEP = (("RCQ-dde-L6", (6.4, 6.5), 5 * 10 ** 7),
+            ("RCQ-dde-L6", (6.6,), 2 * 10 ** 7),
+            ("W-ORCQ-dde-L6", (6.4, 6.5), 5 * 10 ** 7))
+P16_TRAIN, P16_CHECK_SNR = dict(epochs=1, num_samples=256), 6.5
+# train_layered_short's FER table: the program's frames a point
+P16_FRAMES = 65536
+# ee_trained's survivor counts Fisher-tested against the JAX record's
+P16_EE_TESTED = ("survivors_plain_t1=2_B8192",
+                 "survivors_trained_t1=2_B8192", "survivors_dde_t1=2_B8192")
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -2307,8 +2347,403 @@ def phase15(dev, card):
                 k4_err=errs["K4"])
 
 
+def phase16_check(dev, card, name, dec, T_, B_, lean, gen):
+    """K1 against its plain version at one spec phase 16 launches (not
+    counted): ``dec`` truncated to ``T_`` iterations (a stage 1) or whole,
+    on ``B_`` frames at P16_CHECK_SNR in bf16, bit for bit (bits, success,
+    iterations, the posterior's bit patterns where it is full); then the
+    kernel timed at that shape against its bound, beside the plain
+    version's one call. Returns (max |d posterior|, kernel ms)."""
+    import ldpc_tpu_torch as lt
+
+    d = dec if T_ == dec.max_iterations else dataclasses.replace(
+        dec, qc_options=None).truncated(T_)
+    x = lt.awgn_llr(gen, torch.zeros((B_, dec.code.n), device=dev),
+                    P16_CHECK_SNR).to(torch.bfloat16)
+    out = uncounted(lambda: kernel_on(x, d, T_, lean))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain_on(x, d, T_, lean)
+    torch.cuda.synchronize()
+    p_ms = 1e3 * (time.perf_counter() - t0)
+    err = agree(f"{name} T={T_}", out, ref, torch.bfloat16, lean)
+    del out, ref
+    k_ms = uncounted(lambda: time_ms(lambda: kernel_on(x, d, T_, lean), 5))
+    b_ms, b_by = bound(d, B_, T_, flooding=False, lean=lean)
+    print(f"  K1 {name} B={B_} T={T_} (bf16, {'lean' if lean else 'full'}): "
+          f"{k_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+          f"{100 * b_ms / k_ms:.1f}% of the bound, plain {p_ms:.1f} ms (one "
+          f"call)  [{card}]")
+    return err, k_ms
+
+
+def phase16_checks(dev, card, specs, gen):
+    """:func:`phase16_check` at each ``(name, decoder, iterations, batch,
+    lean)`` of ``specs``; returns (max |d posterior|, {(name, iterations,
+    batch): kernel ms})."""
+    err, ms = 0.0, {}
+    for name, dec, T_, B_, lean in specs:
+        e, ms[name, T_, B_] = phase16_check(dev, card, name, dec, T_, B_,
+                                            lean, gen)
+        err = max(err, e)
+    return err, ms
+
+
+def only_k1(what, counts, lo, hi=None):
+    """Fail unless ``counts`` has no K4, K5 or K6 launch and K1's launches
+    are ``lo`` (to ``hi`` where given)."""
+    hi = lo if hi is None else hi
+    if counts["K4"] or counts["K5"] or counts["K6"] or \
+            not lo <= counts["K1"] <= hi:
+        raise AssertionError(f"{what}: launches {counts}, want K1 in "
+                             f"[{lo}, {hi}] and nothing else")
+
+
+def phase16_ab_s(dev, card, tmp):
+    """(a): K1 against its plain version at the bench wave's stage 1 and
+    each budget's stage 2, the three budgets on the same two LLR sets
+    (survivors within each budget, the same bits under each), then the
+    twin's timed run; returns (K1's launches, max |d posterior|)."""
+    from ldpc_tpu_torch.cli import bench, bench_ab_s
+
+    t0 = time.perf_counter()
+    dec = bench.bench_decoder(dev)
+    fns = bench_ab_s.budget_decoders(dec)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    err = phase16_checks(dev, card, [("bench", dec, bench_ab_s.T1, bench.B,
+                                      True)] + [
+        ("bench", dec, bench.T, S, True) for S in fns], gen)[0]
+    llrs = bench.make_llrs(bench.B, dec.code.n, bench.SNR_DB,
+                           torch.Generator(device=dev).manual_seed(0),
+                           sets=bench_ab_s.SETS)
+    reset_counts()
+    surv = {S: [] for S in fns}
+    for i, llr in enumerate(llrs):
+        ref = None
+        for S, fn in fns.items():
+            out, n = fn(llr)
+            surv[S].append(int(n))
+            if ref is None:
+                ref = out.bits
+            elif not torch.equal(out.bits, ref):
+                raise AssertionError(f"(a) set {i}: S={S} changes the bits")
+        del ref, out
+    if any(max(v) > S for S, v in surv.items()):
+        raise AssertionError(f"(a) survivors {surv} overflow a budget")
+    del llrs
+    torch.cuda.empty_cache()
+    rates = bench_ab_s.run(dev, os.path.join(tmp, "bench_ab_s.json"),
+                           verbose=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    waves = len(fns) * bench_ab_s.SETS * 2 + \
+        bench_ab_s.TRIALS * len(fns) * bench.REPS
+    only_k1("(a)", counts, 2 * waves)
+    print(f"  (a) bench_ab_s: B={bench.B} at {bench.SNR_DB} dB, t1="
+          f"{bench_ab_s.T1}; survivors per set {surv}, every wave within "
+          f"its budget; S = {', '.join(map(str, fns))} give the same bits "
+          f"on both sets; best cw/s {rates}  [{card}]")
+    print(f"  (a) {time.perf_counter() - t0:.1f} s, {waves} waves, K1 "
+          f"launches {counts['K1']}")
+    return counts["K1"], err
+
+
+def phase16_ee(dev, card, tmp, record, book):
+    """(b): K1 against its plain version at every shape the survey and
+    the arms may launch, then the twin's run: the six survivor counts
+    beside the JAX record (the t1=2 ones Fisher-tested), the arms the
+    counts select and their rates, K1's launches held to the survey's and
+    the arms' waves; returns (K1's launches, max |d posterior|)."""
+    from ldpc_tpu_torch.cli import bench
+    from ldpc_tpu_torch.cli import ee_trained as ee
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    decs = ee.decoders(dev)
+    T_ = decs["plain"].max_iterations
+    # the survey: each decoder's stage 1 at each t1 and stage 2 on the
+    # survey budget's rows; every arm the rule can select (all of them
+    # at zero counts): stage 1 at the arm's t1 and batch, stage 2 at its
+    # budget
+    survey = [f"survivors_{key}_t1={t1}_B8192" for key in decs
+              for t1 in ee.T1S]
+    specs = {(key, t1, ee.B) for key in decs for t1 in ee.T1S} | \
+        {(key, T_, ee.SURVEY_BUDGET) for key in decs}
+    for _, key, t1, S, B_ in ee.arms(dict.fromkeys(survey, 0)):
+        specs |= {(key, t1, B_), (key, T_, S)}
+    err = phase16_checks(dev, card, [(f"ee {key}", decs[key], t, B_, True)
+                                     for key, t, B_ in sorted(specs)],
+                         gen)[0]
+    del decs
+    torch.cuda.empty_cache()
+    reset_counts()
+    t1 = time.perf_counter()
+    res = ee.run(dev, os.path.join(tmp, "ee_trained.json"), verbose=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # two launches a wave: the survey's one wave at each t1 of each
+    # decoder, each arm's warm-up and timed waves (an arm that overflowed
+    # stopped after 1 to all of them)
+    arms = ee.arms(res)
+    per_arm = bench.WARMUP + bench.TRIALS * bench.REPS
+    lo = hi = 2 * len(survey)
+    for name, *_ in arms:
+        lo += 2 * (1 if res[name]["cw_per_sec"] is None else per_arm)
+        hi += 2 * per_arm
+    only_k1("(b)", counts, lo, hi)
+    jrec, jb = record["ee_trained"], 8192  # the record's batch
+    for key in (k for k in jrec if k.startswith("survivors_")):
+        got, want = res[key], jrec[key]
+        line = f"  (b) {key}: {got}/{ee.B}, JAX {want}/{jb}"
+        if key in P16_EE_TESTED:
+            p = fisher_p(got, ee.B, want, jb)
+            book.tested += 1
+            line += f", Fisher p {p:.3g}"
+            if p < P15_P:
+                book.failed.append(f"{key}: p {p:.3g}")
+        else:
+            line += ", printed only"
+        print(line + f"  [{card}]")
+    print(f"  (b) the rule (t1=2 at S=1024 when <= {ee.T1_2_MAX}, t1=3 at "
+          f"S=128 when <= {ee.T1_3_MAX}) selects {[a[0] for a in arms]} "
+          f"(JAX: {[k for k in jrec if not k.startswith('survivors_')]})")
+    for name, *_ in arms:
+        r = res[name]
+        rate = "OVERFLOW" if r["cw_per_sec"] is None else \
+            f"{r['cw_per_sec']:.1f} cw/s"
+        print(f"  (b) {name}: {rate}, largest survivor count "
+              f"{r['max_survivors']}  [{card}]")
+    print(f"  (b) {time.perf_counter() - t0:.1f} s (run "
+          f"{time.perf_counter() - t1:.1f} s), K1 launches {counts['K1']}")
+    return counts["K1"], err
+
+
+def phase16_dde(dev, card, root, record, book):
+    """(c): ``train`` cut to P16_TRAIN in one temporary directory (no
+    launch), then ``deep``'s arms in another (so the zoo's entry): K1 held
+    to its plain version at each arm's stage 1 and whole decode on a wave
+    and stage 2 on the budget, and the P16_DEEP points; returns (K1's
+    launches, max |d posterior|)."""
+    import tempfile
+
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.cli import bench_dde, deep_fer
+
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            dec, hist = bench_dde.train(device=dev, verbose=False,
+                                        **P16_TRAIN)
+            c_tr = read_counts()
+            saved = lt.load_pretrained(bench_dde.TRAINED_DIR, device=dev)
+        finally:
+            os.chdir(cwd)
+    if sum(c_tr.values()) or not all(
+            torch.equal(saved.weights[k], dec.weights[k])
+            for k in ("beta", "alpha")):
+        raise AssertionError(f"(c) training launched {c_tr}, or the saved "
+                             f"entry differs")
+    print(f"  (c) bench_dde train cut to {P16_TRAIN} (the program's 30 "
+          f"epochs of 2048): loss {hist['training_losses'][-1]:.5f}, the "
+          f"entry reloads equal, no launch, {time.perf_counter() - t0:.1f} "
+          f"s  [{card}]")
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.chdir(tmp)
+        try:
+            src = bench_dde.trained_source()
+            arms = bench_dde.arms(dev)
+        finally:
+            os.chdir(cwd)
+    if src != bench_dde.ZOO_ENTRY:
+        raise AssertionError(f"(c) deep read {src}, not the zoo")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    # a compacted wave: stage 1 on the wave, stage 2 on the budget; a
+    # fallback wave decodes the wave whole besides
+    err, k_ms = phase16_checks(dev, card, [
+        (name, dec, T_, B_, False) for name, dec in arms.items()
+        for T_, B_ in ((bench_dde.T1, bench_dde.WAVE),
+                       (bench_dde.T, bench_dde.BUDGET),
+                       (bench_dde.T, bench_dde.WAVE))], gen)
+    torch.cuda.empty_cache()
+    print(f"  (c) deep cut: {[(n, s, f'{c:,}') for n, s, c in P16_DEEP]} "
+          f"(the program: 6.4-6.7 dB, 5e7 frames); waves {bench_dde.WAVE}, "
+          f"budget {bench_dde.BUDGET}, 100 errors, min frames "
+          f"{bench_dde.MIN_FRAMES}")
+    t1 = time.perf_counter()
+    reset_counts()
+    want, runs = 0, []
+    for name, snrs, cap in P16_DEEP:
+        cfg = bench_dde.deep_config(cap, min(snrs), max(snrs), dev)
+        res, sim = deep_fer.sweep({name: arms[name]}, cfg, checkpoints=None,
+                                  verbose=False)
+        if list(res) != [name] or [round(s, 2) for s in
+                                   res[name].snr_values] != list(snrs):
+            raise AssertionError(f"(c) {name}: curves {res}")
+        kinds = sim.wave_kinds[name]
+        want += sum(2 * k.get("compacted", 0) + 4 * k.get("fallback", 0)
+                    for k in kinds)
+        runs.append((name, res[name], kinds))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    only_k1("(c) deep", counts, want)
+    if {name for name, _, _ in runs} != set(arms):
+        raise AssertionError(f"(c) curves of {[r[0] for r in runs]}")
+    for name, r, kinds in runs:
+        def extra(_, i, r=r, kinds=kinds):
+            return (f", {r.total_frames[i] / r.simulation_times[i]:.1f} "
+                    f"frames/s ({r.simulation_times[i]:.2f} s), avg "
+                    f"iterations {r.average_iterations[i]:.4f}, waves "
+                    f"{kinds[i]}")
+        book.curves("c", {name: r}, record["bench_dde"]["curves"],
+                    extra=extra)
+    name, r, kinds = runs[1]
+    if set(kinds[-1]) == {"compacted"}:
+        per = 1e3 * r.simulation_times[-1] / kinds[-1]["compacted"]
+        stage1 = k_ms[name, bench_dde.T1, bench_dde.WAVE]
+        st2 = k_ms[name, bench_dde.T, bench_dde.BUDGET]
+        print(f"  (c) {name} @ {r.snr_values[-1]:.2f} dB: a compacted wave "
+              f"{per:.3f} ms; K1 stage 1 (B={bench_dde.WAVE}, T="
+              f"{bench_dde.T1}) {stage1:.3f} ms + stage 2 (B="
+              f"{bench_dde.BUDGET}, T={bench_dde.T}) {st2:.3f} ms alone, the "
+              f"rest {per - stage1 - st2:.3f} ms  [{card}]")
+    print(f"  (c) {time.perf_counter() - t0:.1f} s (deep "
+          f"{time.perf_counter() - t1:.1f} s), K1 launches {counts['K1']}")
+    return counts["K1"], err
+
+
+def phase16_short(dev, card, root, record, book):
+    """(d): the four arms trained for P16_TRAIN (no launch), K1 held to
+    its plain version on a wave at every spec of the table (RCQ-L6,
+    RCQ-L5, the zoo's degree-shared T=5 and T=4 tables, the cut-trained
+    per-layer ones), the FER table at the program's frames with RCQ-L6
+    and RCQ-L5 Fisher-tested, the zoo's t5 and t4 beside their recorded
+    FER; returns (K1's launches, max |d posterior|)."""
+    import tempfile
+
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.cli import deep_fer
+    from ldpc_tpu_torch.cli import train_layered_short as short
+
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            cands = short.train_candidates(device=dev, verbose=False,
+                                           **P16_TRAIN)
+            c_tr = read_counts()
+            saved = sorted(os.listdir(tmp))
+        finally:
+            os.chdir(cwd)
+    if sum(c_tr.values()) or saved != sorted(
+            short.checkpoint_dir(T, pl) for T in (5, 4) for pl in (0, 1)):
+        raise AssertionError(f"(d) training launched {c_tr}, saved {saved}")
+    print(f"  (d) the four arms trained for {P16_TRAIN} (the program's 24 "
+          f"epochs of 2048): tables " + ", ".join(
+              f"{k} {tuple(d.weights['beta'].shape)}"
+              for k, d in cands.items()) +
+          f"; no launch; {time.perf_counter() - t0:.1f} s  [{card}]")
+    zoo = {T: lt.load_pretrained(f"worcq_bc3_layered_t{T}",
+                                 qc_options=dict(deep_fer.FUSED), device=dev)
+           for T in (5, 4)}
+    decs = {short.BENCH: short.make(6, "rcq", device=dev),
+            "RCQ-L5": short.make(5, "rcq", device=dev), **cands}
+    # every spec of the table whole on a wave: the degree-shared
+    # candidates' spec with the zoo's tables, the per-layer ones with
+    # their own
+    gen = torch.Generator(device=dev).manual_seed(18)
+    err = phase16_checks(dev, card, [
+        (name, dec, dec.max_iterations, short.WAVE, False)
+        for name, dec in ((short.BENCH, decs[short.BENCH]),
+                          ("RCQ-L5", decs["RCQ-L5"]), ("zoo t5", zoo[5]),
+                          ("zoo t4", zoo[4])) +
+        tuple((n, cands[n]) for n in ("W-OMS-RCQ-L5+perlayer",
+                                      "W-OMS-RCQ-L4+perlayer"))], gen)[0]
+    torch.cuda.empty_cache()
+    frames = P16_FRAMES
+    t1 = time.perf_counter()
+    reset_counts()
+    fers = short.fer_table(decs, frames, dev, verbose=False)
+    zfers = short.fer_table({f"worcq_bc3_layered_t{T}": d
+                             for T, d in zoo.items()}, frames, dev,
+                            verbose=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = (len(decs) + len(zoo)) * len(short.POINTS) * (frames // short.WAVE)
+    only_k1("(d)", counts, want)
+    if set(fers) != set(record["train_layered_short"]["fers"]):
+        raise AssertionError(f"(d) FERs of {list(fers)}")
+    jf = record["train_layered_short"]["fers"]
+    jn = record["train_layered_short"]["frames_per_point"]
+    for name, row in fers.items():
+        for snr, fer in row.items():
+            e, je = round(fer * frames), round(jf[name][snr] * jn)
+            line = (f"  (d) {name} @ {snr} dB: {e}/{frames} (FER {fer:.4g}), "
+                    f"JAX {je}/{jn}")
+            if name not in cands and min(je, jn - je) >= P15_MIN:
+                p = fisher_p(e, frames, je, jn)
+                book.tested += 1
+                line += f", Fisher p {p:.3g}"
+                if p < P15_P:
+                    book.failed.append(f"{name} @ {snr} dB: p {p:.3g}")
+            else:
+                line += (", not tested (cut-trained here)" if name in cands
+                         else f", not tested (JAX {je} errors)")
+            print(line + f"  [{card}]")
+    for name, row in zfers.items():
+        meta = lt.list_pretrained()
+        mfer = next(s["meta"]["fer"] for p, s in meta
+                    if os.path.basename(p) == name)
+        print(f"  (d) {name} (zoo) FER " + ", ".join(
+            f"{fer:.4g} @ {snr} dB (meta {mfer[snr]})"
+            for snr, fer in row.items()) + f"  [{card}]")
+    verdict = short.verdicts(fers, cands)
+    print(f"  (d) verdicts (cut-trained; printed, not tested): {verdict}; "
+          f"JAX: {record['train_layered_short']['verdicts']}")
+    print(f"  (d) {time.perf_counter() - t0:.1f} s (FER table "
+          f"{time.perf_counter() - t1:.1f} s), K1 launches {counts['K1']}")
+    return counts["K1"], err
+
+
+def phase16(dev, card):
+    """The bench-knob and short-schedule programs' twins at full width;
+    returns K1's launches and the largest posterior difference."""
+    import tempfile
+
+    print("[16 bench-knob and short-schedule twins]")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    record = {}
+    for prog in ("ee_trained", "bench_dde", "train_layered_short"):
+        with open(os.path.join(root, "experiments",
+                               f"{prog}_results.json")) as f:
+            record[prog] = json.load(f)
+    book = FisherBook(card)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        k1, err_a = phase16_ab_s(dev, card, tmp)
+        torch.cuda.empty_cache()
+        k_b, err_b = phase16_ee(dev, card, tmp, record, book)
+    torch.cuda.empty_cache()
+    k_c, err_c = phase16_dde(dev, card, root, record, book)
+    torch.cuda.empty_cache()
+    k_d, err_d = phase16_short(dev, card, root, record, book)
+    k1 += k_b + k_c + k_d
+    print(f"  {book.tested} points Fisher-tested against the JAX records; "
+          f"K1 launches in phase 16 {k1} (a {k1 - k_b - k_c - k_d}, b {k_b}, "
+          f"c {k_c}, d {k_d}), no K4, K5 or K6; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if book.failed:
+        raise AssertionError(f"points off the JAX records (p < {P15_P}): "
+                             f"{book.failed}")
+    return dict(K1=k1, k1_err=max(err_a, err_b, err_c, err_d))
+
+
 def run(design, de):
-    """Phases 1-15; ``design`` and ``de`` are the result handles of
+    """Phases 1-16; ``design`` and ``de`` are the result handles of
     :func:`bench_design` and :func:`de_data` running in a worker
     process."""
     import ldpc_tpu_torch as lt
@@ -2588,6 +3023,8 @@ def run(design, de):
     p14 = phase14(dev, card)
     torch.cuda.empty_cache()
     p15 = phase15(dev, card)
+    torch.cuda.empty_cache()
+    p16 = phase16(dev, card)
 
     print(card)
     k4 = k4_times[SIM_WAVE]
@@ -2597,8 +3034,9 @@ def run(design, de):
         "source": "ldpc_tpu_torch/csrc/fused_layered.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
         "launches": (launches + p12_launches + p13["K1"] + p14["K1"] +
-                     p15["K1"]),
-        "max_abs_err": max(max_err, p12_err, p14["k1_err"], p15["k1_err"]),
+                     p15["K1"] + p16["K1"]),
+        "max_abs_err": max(max_err, p12_err, p14["k1_err"], p15["k1_err"],
+                           p16["k1_err"]),
         "ms": times[256][0],
         "plain_ms": times[256][1],
         "bound_ms": k1_bound[0],

@@ -1,7 +1,9 @@
 """Command-line twins of the root scripts (``examples.py``,
 ``comprehensive_test.py``, ``generate_images.py``, ``__graft_entry__.py``,
-``bench.py``) and of the throughput and FER campaign programs of
-``experiments/`` (``throughput_matrix``, ``ee_batch``, ``fer_parity``,
-``accuracy_bc3``, ``deep_fer``, ``deep_fer_trained_l6``), run as
+``bench.py``) and of the throughput, FER campaign, bench-knob and
+short-schedule programs of ``experiments/`` (``throughput_matrix``,
+``ee_batch``, ``fer_parity``, ``accuracy_bc3``, ``deep_fer``,
+``deep_fer_trained_l6``, ``bench_ab_s``, ``ee_trained``, ``bench_dde``,
+``train_layered_short``), run as
 ``python -m ldpc_tpu_torch.cli.<name>``; each takes ``--device`` (the card
 by default) and writes its results outside ``experiments/``."""

@@ -61,26 +61,34 @@ REF_RCQ_CW_PER_SEC = 1.0 / 0.0546
 
 
 class BudgetOverflow(RuntimeError):
-    """More unconverged frames after stage 1 than the survivor budget."""
+    """More unconverged frames after stage 1 than the survivor budget;
+    ``count`` is the survivor count that overflowed."""
+
+    def __init__(self, count: int, budget: int, what: str):
+        super().__init__(f"survivor budget overflow in {what}: "
+                         f"{count} > {budget}")
+        self.count = count
 
 
-def bench_decoder(device="cuda"):
-    """``bench.py:56-72``'s decoder on ``device``."""
+def bench_decoder(device="cuda", qp=QP_DDE):
+    """``bench.py:56-72``'s decoder on ``device``, on the CN ladder
+    ``qp`` (the DDE ladder unless another is given)."""
     base = np.random.default_rng(0).integers(0, 256, size=(5, 37))
     code = lt.create_qc_code(base, lift=256, max_iterations=T)
     return lt.make_decoder(
-        code, kind="rcq", bc=3, bv=8, quantizer_params=QP_DDE,
+        code, kind="rcq", bc=3, bv=8, quantizer_params=qp,
         v2c_quantizer_params=VQP, max_iterations=T,
         qc=lt.build_qc_graph(base, 256), layered=True,
         qc_options=dict(fused=True, batch_tile=64, dtype=torch.bfloat16,
                         lean=True, natural=True), device=device)
 
 
-def make_llrs(B: int, n: int, snr_db: float, generator: torch.Generator):
-    """Three float32 LLR sets [B, n] of the all-zero codeword at
+def make_llrs(B: int, n: int, snr_db: float, generator: torch.Generator,
+              sets: int = 3):
+    """``sets`` float32 LLR sets [B, n] of the all-zero codeword at
     ``snr_db``, drawn from ``generator`` on its device."""
     cw = torch.zeros((B, n), device=generator.device)
-    return [lt.awgn_llr(generator, cw, snr_db) for _ in range(3)]
+    return [lt.awgn_llr(generator, cw, snr_db) for _ in range(sets)]
 
 
 def wave(two_ck, llr):
@@ -92,8 +100,7 @@ def wave(two_ck, llr):
 
 def _check_budget(n_surv: int, S: int, what: str):
     if n_surv > S:
-        raise BudgetOverflow(f"survivor budget overflow in {what}: "
-                             f"{n_surv} > {S}")
+        raise BudgetOverflow(n_surv, S, what)
 
 
 def warm_up(two_ck, llrs, S: int, waves: int = WARMUP):

@@ -46,7 +46,8 @@ from ldpc_tpu_torch.cli import accuracy_bc3 as acc
 from ldpc_tpu_torch.cli import deep_fer, fer_parity
 from ldpc_tpu_torch.cli import deep_fer_trained_l6 as l6
 from ldpc_tpu_torch.sim.montecarlo import _CompactingWave
-from torch_port_helpers import (assert_same_fields, channel_llr,
+from torch_port_helpers import (assert_same_config, assert_same_decoder,
+                                assert_same_fields, channel_llr,
                                 one_torch_thread)  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,44 +156,6 @@ def _jax_deep_fer():
     return out
 
 
-def _assert_same_decoder(tdec, jdec, weights=True):
-    """The port decoder equals the JAX one: code, QC tables, spec, name,
-    recipe, schedule, options and (``weights``) the weight tables."""
-    np.testing.assert_array_equal(tdec.code.H, jdec.code.H)
-    assert (tdec.code.n, tdec.code.k) == (jdec.code.n, jdec.code.k)
-    assert (jdec.qc is None) == (tdec.qc is None)
-    if jdec.qc is not None:
-        assert_same_fields(tdec.qc, jdec.qc)
-    else:
-        assert_same_fields(tdec.graph, jdec.graph)
-    assert_same_fields(tdec.spec, jdec.spec)
-    assert (tdec.name, tdec.recipe) == (jdec.name, jdec.recipe)
-    assert (tdec.layered, tdec.max_iterations) == (jdec.layered,
-                                                   jdec.max_iterations)
-
-    def opts(o, dtype_name):
-        return None if o is None else {
-            k: (dtype_name(v) if k == "dtype" else v) for k, v in o.items()}
-
-    assert opts(tdec.qc_options, lambda d: str(d).split(".")[-1]) == \
-        opts(jdec.qc_options, lambda d: np.dtype(d).name)
-    assert tdec.weights.keys() == jdec.weights.keys()
-    for k, w in jdec.weights.items():
-        assert (w is None) == (tdec.weights[k] is None)
-        if w is not None:
-            assert tuple(tdec.weights[k].shape) == np.shape(w)
-            if weights:
-                np.testing.assert_array_equal(tdec.weights[k].numpy(),
-                                              np.asarray(w))
-
-
-def _assert_same_config(tcfg, jcfg):
-    """A port ``SimulationConfig`` equals the JAX one in every JAX field."""
-    for f in dataclasses.fields(jcfg):
-        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
-    np.testing.assert_array_equal(tcfg.snr_points(), jcfg.snr_points())
-
-
 @pytest.fixture(scope="module")
 def deep_jax():
     return _jax_deep_fer()
@@ -201,8 +164,8 @@ def deep_jax():
 @pytest.mark.parametrize("name", ["float-MS", "RCQ-bc3", "RCQ-bc3-bv8",
                                   "RCQ-bc4"])
 def test_fer_parity_decoders_equal_the_jax_program(name):
-    _assert_same_decoder(fer_parity.parity_decoders("cpu")[name],
-                         _jax_parity()[name])
+    assert_same_decoder(fer_parity.parity_decoders("cpu")[name],
+                        _jax_parity()[name])
 
 
 @pytest.mark.parametrize("ladder", list(acc.LADDERS))
@@ -210,8 +173,8 @@ def test_accuracy_dev_decoders_equal_the_jax_program(ladder):
     """The dev sweep's RCQ on each ladder; the JAX program's ladders."""
     code, qc = acc.bench_code(LIFT)
     qp = acc.LADDERS[ladder]
-    _assert_same_decoder(acc.make(code, qc, "rcq", qp, "cpu"),
-                         _jax_accuracy(qp)["dev"])
+    assert_same_decoder(acc.make(code, qc, "rcq", qp, "cpu"),
+                        _jax_accuracy(qp)["dev"])
 
 
 @pytest.mark.parametrize("ladder", ["2-4-6@1.3", "3-5-7@1.6"])
@@ -224,12 +187,12 @@ def test_accuracy_trained_and_waterfall_decoders(ladder):
     jax_decs = _jax_accuracy(qp)
     pair = acc.untrained_pair(code, qc, qp, "cpu")
     for name, dec in pair.items():
-        _assert_same_decoder(dec, jax_decs[name], weights=False)
+        assert_same_decoder(dec, jax_decs[name], weights=False)
     falls = acc.waterfall_decoders(code, qc, qp, {
         k: (d, 0.0) for k, d in pair.items()}, "cpu")
     assert list(falls) == list(_jax_result("accuracy_bc3")["curves"])
     for name in ("float-MS", "RCQ-bc3-bv8", "RCQ-bc3-bv8uni"):
-        _assert_same_decoder(falls[name], jax_decs[name])
+        assert_same_decoder(falls[name], jax_decs[name])
     assert falls["W-OMS-RCQ-bc3-trained"] is pair["W-OMS-RCQ"]
 
 
@@ -245,30 +208,30 @@ def test_deep_fer_decoders_equal_the_jax_programs(deep_jax, name):
         tdec = deep_fer.trained_flooding_decoder(lift=LIFT, device="cpu")
     else:
         tdec = deep_fer.layered_decoders(LIFT, "cpu")[name]
-    _assert_same_decoder(tdec, deep_jax[name])
+    assert_same_decoder(tdec, deep_jax[name])
 
 
 def test_configs_equal_the_jax_programs():
     """Every ``SimulationConfig`` and the ``TrainingConfig`` of the four
     programs, by their own arguments."""
     for frames in (65536, 16384):  # fer_parity.py:65-67
-        _assert_same_config(fer_parity.parity_config(frames, "cpu"),
-                            JaxSimulationConfig(
-                                snr_range=(1.0, 4.0), snr_step=0.5,
-                                max_frames=frames,
-                                max_errors=max(200, frames // 64),
-                                min_frames=min(8192, frames),
-                                wave_size=4096))
-    _assert_same_config(acc.dev_config("cpu"), JaxSimulationConfig(
+        assert_same_config(fer_parity.parity_config(frames, "cpu"),
+                           JaxSimulationConfig(
+                               snr_range=(1.0, 4.0), snr_step=0.5,
+                               max_frames=frames,
+                               max_errors=max(200, frames // 64),
+                               min_frames=min(8192, frames),
+                               wave_size=4096))
+    assert_same_config(acc.dev_config("cpu"), JaxSimulationConfig(
         snr_range=(6.4, 6.4), snr_step=1.0, max_frames=16384,
         max_errors=10 ** 9, min_frames=0, wave_size=4096, seed=7))
     for frames in (131072, 16384):  # accuracy_bc3.py:116-118
-        _assert_same_config(acc.waterfall_config(frames, "cpu"),
-                            JaxSimulationConfig(
-                                snr_range=(5.75, 7.25), snr_step=0.25,
-                                max_frames=frames, max_errors=2000,
-                                min_frames=min(16384, frames),
-                                wave_size=8192))
+        assert_same_config(acc.waterfall_config(frames, "cpu"),
+                           JaxSimulationConfig(
+                               snr_range=(5.75, 7.25), snr_step=0.25,
+                               max_frames=frames, max_errors=2000,
+                               min_frames=min(16384, frames),
+                               wave_size=8192))
     assert_same_fields(acc.training_config(24), JaxTrainingConfig(
         batch_size=128, num_epochs=24, learning_rate=2e-3,
         snr_range=(5.5, 7.5), early_stop_accuracy=2.0, seed=0))
@@ -284,12 +247,12 @@ def test_configs_equal_the_jax_programs():
 
     assert (deep_fer.T1_LAYERED, deep_fer.T1_FLOODING, l6.T1) == (3, 5, 2)
     for t1 in (3, 5):
-        _assert_same_config(deep_fer.campaign_config(t1, device="cpu"),
-                            jax_cfg(t1, 6.4, 6.7, 0.1))
+        assert_same_config(deep_fer.campaign_config(t1, device="cpu"),
+                           jax_cfg(t1, 6.4, 6.7, 0.1))
     snrs = (6.4, 6.5, 6.6, 6.7)  # deep_fer_trained_l6.py:55-61
-    _assert_same_config(l6.trained_l6_config(device="cpu"),
-                        jax_cfg(2, min(snrs), max(snrs),
-                                round(snrs[1] - snrs[0], 6)))
+    assert_same_config(l6.trained_l6_config(device="cpu"),
+                       jax_cfg(2, min(snrs), max(snrs),
+                               round(snrs[1] - snrs[0], 6)))
     # the committed curves' SNR lists, as resuming compares them
     for program in ("deep_fer", "deep_fer_trained_l6"):
         for c in _curves(_jax_result(program)).values():
@@ -557,10 +520,15 @@ def test_twin_needs_a_card_unless_told_cpu(twin, monkeypatch):
 
 
 def test_twins_import_without_jax():
+    """This file's twins and those of ``test_torch_bench_programs.py``
+    (one interpreter start for both)."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import ldpc_tpu_torch.cli.fer_parity, "
             "ldpc_tpu_torch.cli.accuracy_bc3, ldpc_tpu_torch.cli.deep_fer, "
-            "ldpc_tpu_torch.cli.deep_fer_trained_l6; "
+            "ldpc_tpu_torch.cli.deep_fer_trained_l6, "
+            "ldpc_tpu_torch.cli.bench_ab_s, ldpc_tpu_torch.cli.ee_trained, "
+            "ldpc_tpu_torch.cli.bench_dde, "
+            "ldpc_tpu_torch.cli.train_layered_short; "
             "assert 'ldpc_tpu' not in sys.modules; "
             "assert 'experiments' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True,

@@ -109,6 +109,44 @@ def assert_same_fields(a, b):
             assert x == y, k
 
 
+def assert_same_decoder(tdec, jdec, weights=True):
+    """The port decoder equals the JAX one: code, QC tables, spec, name,
+    recipe, schedule, options and (``weights``) the weight tables."""
+    np.testing.assert_array_equal(tdec.code.H, jdec.code.H)
+    assert (tdec.code.n, tdec.code.k) == (jdec.code.n, jdec.code.k)
+    assert (jdec.qc is None) == (tdec.qc is None)
+    if jdec.qc is not None:
+        assert_same_fields(tdec.qc, jdec.qc)
+    else:
+        assert_same_fields(tdec.graph, jdec.graph)
+    assert_same_fields(tdec.spec, jdec.spec)
+    assert (tdec.name, tdec.recipe) == (jdec.name, jdec.recipe)
+    assert (tdec.layered, tdec.max_iterations) == (jdec.layered,
+                                                   jdec.max_iterations)
+
+    def opts(o, dtype_name):
+        return None if o is None else {
+            k: (dtype_name(v) if k == "dtype" else v) for k, v in o.items()}
+
+    assert opts(tdec.qc_options, lambda d: str(d).split(".")[-1]) == \
+        opts(jdec.qc_options, lambda d: np.dtype(d).name)
+    assert tdec.weights.keys() == jdec.weights.keys()
+    for k, w in jdec.weights.items():
+        assert (w is None) == (tdec.weights[k] is None)
+        if w is not None:
+            assert tuple(tdec.weights[k].shape) == np.shape(w)
+            if weights:
+                np.testing.assert_array_equal(tdec.weights[k].numpy(),
+                                              np.asarray(w))
+
+
+def assert_same_config(tcfg, jcfg):
+    """A port ``SimulationConfig`` equals the JAX one in every JAX field."""
+    for f in dataclasses.fields(jcfg):
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    np.testing.assert_array_equal(tcfg.snr_points(), jcfg.snr_points())
+
+
 # -- training: the loss, its weight gradients and the trajectory -------------
 
 QP = ((2.0, 1.3), (4.0, 1.3), (6.0, 1.3))
