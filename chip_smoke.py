@@ -192,6 +192,30 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    Fisher-tested, the zoo's T=5 and T=4 entries beside their recorded
    FER. Points as in phase 15: p >= 1e-3 where the JAX record has at
    least 20 errors and 20 successes.
+17. the W-RCQ training and rate-specific programs' twins
+   (``ldpc_tpu_torch/cli/``) at the programs' code sizes, batches, waves
+   and budgets (only SNR points, frame caps, epochs and ``num_samples``
+   cut, each cut printed): (a) ``train_wrcq`` whole (PEG(256, 128), 12
+   epochs of 4096, 32,768 frames a point; the general engine, no
+   launch), float-MS Fisher-tested at every point, the trained arm below
+   the untrained at 3.0 and 3.5 dB; (b) ``rate_specific`` whole (the PBRL
+   family at k=96, three rates; no launch), MS Fisher-tested at all 15
+   points; (c) ``train_wrcq_qc9472`` at lift 256 (the QC engine, no
+   launch), training cut to 2 steps an epoch, the simulation whole,
+   float-MS at 6.0 dB Fisher-tested; (d) ``rate_specific_deep`` at lift
+   86: K1 held to its plain version bit for bit at stage 1 (T=3,
+   B=32768), stage 2 (T=10, B=4096) and the fallback's whole decode
+   (T=10, B=32768) for W-NMS-RCQ on its initial tables, then for
+   OMS-6bit and both candidates after their training (one step of 128
+   frames each, no launch; every row of the RCQ decoders on K1's
+   per-block route), each timed against its bound with K1's registers,
+   shared memory, check-state placement and CTAs per SM; the campaign
+   ({3, 10}, 32768-frame waves, budget 4096, 100 errors): OMS-6bit at
+   2.6 and 2.8 dB Fisher-tested, the cut-trained candidates at 3.2 dB
+   printed, K1's launches equal to 2 a compacted wave and 4 a fallback.
+   The trained and untrained W-RCQ arms are printed beside the JAX
+   records, not tested (their weights come from the port's generator);
+   no K4, K5 or K6 launch in the phase, which must end within 180 s.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -229,6 +253,7 @@ sys.modules["jax"] = None  # the port must not need JAX; fail loudly if it does
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 # separately rounded float32 operations per second: the kernels build with
 # -fmad=false, so each add, multiply, compare or select is one instruction,
@@ -397,6 +422,24 @@ P16_FRAMES = 65536
 # ee_trained's survivor counts Fisher-tested against the JAX record's
 P16_EE_TESTED = ("survivors_plain_t1=2_B8192",
                  "survivors_trained_t1=2_B8192", "survivors_dde_t1=2_B8192")
+# phase 17: the W-RCQ training and rate-specific programs' twins
+# (ldpc_tpu_torch/cli/) at the programs' code sizes (PEG 256, PBRL k=96,
+# lift 256, lift 86), batches, waves and budgets; only SNR points, frame
+# caps, epochs and num_samples are cut, each cut printed. train_wrcq and
+# rate_specific run whole (the programs' defaults); train_wrcq_qc9472's
+# simulation runs whole, its training cut to 2 steps an epoch (256 of the
+# program's 1024 frames) for at most 2 epochs (the trainer's accuracy
+# early stop at 0.99 ends it after the first: the JAX record's
+# "train_epochs": 1); rate_specific_deep's training cut to one step of
+# 128 frames a candidate, its campaign to P17_DEEP's points at the
+# program's 2e7-frame cap and 100 errors. K1 is first held to its plain
+# version at every (decoder, iterations, batch) the campaign launches (and
+# W-NMS-RCQ on its initial tables), on LLRs drawn at P17_CHECK_SNR
+P17_TQ, P17_TQ_SAMPLES = dict(lift=256, frames=16384, epochs=2), 256
+P17_RSD_EPOCHS, P17_RSD_SAMPLES = 1, 128
+P17_DEEP = (("OMS-6bit", (2.6, 2.8)), ("W-NMS-RCQ-4bit-trained", (3.2,)),
+            ("W-OMS-RCQ-4bit-trained", (3.2,)))
+P17_CHECK_SNR, P17_LIMIT = 3.2, 180
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -551,23 +594,35 @@ def edge_ops(spec, flooding):
     return 2 + 2 + min_tree + leave_one_out + 2, send
 
 
-def c2v_computed(dec, T_, rows=None):
-    """c2v values per lifted check the decode function must compute,
-    summed over iterations 0..T_-1 and the base rows (all, or ``rows``):
-    min(4, dc) on a row whose blocks share (beta, alpha) at the iteration
-    bit for bit (c2v(+-1, min1 or min2)), dc on any other."""
+def shared_pairs(dec):
+    """{(iteration, base row): whether the row's blocks share (beta, alpha)
+    bit for bit at that iteration}: where they do, K1 and K5 send each
+    check's c2v from min1 or min2 (four values); elsewhere they take the
+    per-block route and compute each c2v."""
     from ldpc_tpu_torch.decode import engine
     qc = dec.qc
     tabs = engine._tables(dec.weights, dec.spec, dec.max_iterations,
                           qc.num_blocks, dec.device)
     beta, alpha = tabs["beta"].cpu(), tabs["alpha"].cpu()
+    return {(t, i): all(len(torch.unique(w[t, [int(b) for b in blocks]]
+                                         .view(torch.int32))) == 1
+                        for w in (beta, alpha))
+            for t in range(dec.max_iterations)
+            for i, blocks in enumerate(qc.row_blocks)}
+
+
+def c2v_computed(dec, T_, rows=None):
+    """c2v values per lifted check the decode function must compute,
+    summed over iterations 0..T_-1 and the base rows (all, or ``rows``):
+    min(4, dc) on a row whose blocks share (beta, alpha) at the iteration
+    bit for bit (c2v(+-1, min1 or min2)), dc on any other."""
+    qc = dec.qc
+    shared = shared_pairs(dec)
     total = 0
     for t in range(T_):
         for i in (range(qc.mb) if rows is None else rows):
-            idx = [int(b) for b in qc.row_blocks[i]]
-            shared = all(len(torch.unique(w[t, idx].view(torch.int32))) == 1
-                         for w in (beta, alpha))
-            total += min(4, len(idx)) if shared else len(idx)
+            dc = len(qc.row_blocks[i])
+            total += min(4, dc) if shared[t, i] else dc
     return total
 
 
@@ -2092,10 +2147,12 @@ class FisherBook:
     def __init__(self, card):
         self.card, self.failed, self.tested = card, [], 0
 
-    def curves(self, tag, results, record, test=True, extra=None):
+    def curves(self, tag, results, record, test=True, extra=None,
+               why="cut-trained here"):
         """Print every point of ``results`` ({name: SimulationResult})
         beside ``record`` ({name: JAX curve dict}); Fisher-test them when
-        ``test``. ``extra(name, i)`` adds to a point's line."""
+        ``test``, else say ``why`` not. ``extra(name, i)`` adds to a
+        point's line."""
         for name, r in results.items():
             ref = jax_points(record[name])
             for i, snr in enumerate(r.snr_values):
@@ -2112,7 +2169,7 @@ class FisherBook:
                     if p < P15_P:
                         self.failed.append(f"{name} @ {snr:.2f} dB: p {p:.3g}")
                 else:
-                    line += (", not tested (cut-trained here)" if not test
+                    line += (f", not tested ({why})" if not test
                              else f", not tested (JAX {je} errors)")
                 if extra is not None:
                     line += extra(name, i)
@@ -2347,10 +2404,11 @@ def phase15(dev, card):
                 k4_err=errs["K4"])
 
 
-def phase16_check(dev, card, name, dec, T_, B_, lean, gen):
+def phase16_check(dev, card, name, dec, T_, B_, lean, gen,
+                  snr=P16_CHECK_SNR):
     """K1 against its plain version at one spec phase 16 launches (not
     counted): ``dec`` truncated to ``T_`` iterations (a stage 1) or whole,
-    on ``B_`` frames at P16_CHECK_SNR in bf16, bit for bit (bits, success,
+    on ``B_`` frames at ``snr`` dB in bf16, bit for bit (bits, success,
     iterations, the posterior's bit patterns where it is full); then the
     kernel timed at that shape against its bound, beside the plain
     version's one call. Returns (max |d posterior|, kernel ms)."""
@@ -2359,7 +2417,7 @@ def phase16_check(dev, card, name, dec, T_, B_, lean, gen):
     d = dec if T_ == dec.max_iterations else dataclasses.replace(
         dec, qc_options=None).truncated(T_)
     x = lt.awgn_llr(gen, torch.zeros((B_, dec.code.n), device=dev),
-                    P16_CHECK_SNR).to(torch.bfloat16)
+                    snr).to(torch.bfloat16)
     out = uncounted(lambda: kernel_on(x, d, T_, lean))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2377,14 +2435,14 @@ def phase16_check(dev, card, name, dec, T_, B_, lean, gen):
     return err, k_ms
 
 
-def phase16_checks(dev, card, specs, gen):
+def phase16_checks(dev, card, specs, gen, snr=P16_CHECK_SNR):
     """:func:`phase16_check` at each ``(name, decoder, iterations, batch,
     lean)`` of ``specs``; returns (max |d posterior|, {(name, iterations,
     batch): kernel ms})."""
     err, ms = 0.0, {}
     for name, dec, T_, B_, lean in specs:
         e, ms[name, T_, B_] = phase16_check(dev, card, name, dec, T_, B_,
-                                            lean, gen)
+                                            lean, gen, snr)
         err = max(err, e)
     return err, ms
 
@@ -2742,8 +2800,276 @@ def phase16(dev, card):
     return dict(K1=k1, k1_err=max(err_a, err_b, err_c, err_d))
 
 
+def curves_of(report):
+    """{name: SimulationResult} of a twin's report."""
+    from ldpc_tpu_torch.sim import SimulationResult
+    return {k: SimulationResult.from_dict(v)
+            for k, v in report["curves"].items()}
+
+
+def phase17_train_wrcq(dev, card, tmp, record, book):
+    """(a): the train_wrcq twin with its defaults, no launch; float-MS
+    Fisher-tested at every point, the two W-RCQ arms beside the record;
+    the trained arm below the untrained at 3.0 and 3.5 dB."""
+    from ldpc_tpu_torch.cli import train_wrcq as tw
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rep = tw.run(out_path=os.path.join(tmp, "train_wrcq.json"),
+                 verbose=False, device=dev)
+    torch.cuda.synchronize()
+    only_k1("(a)", read_counts(), 0)
+    res = curves_of(rep)
+    jrec = record["train_wrcq"]
+    if list(res) != list(jrec["curves"]):
+        raise AssertionError(f"(a) curves {list(res)}")
+    book.curves("a", {"float-MS": res["float-MS"]}, jrec["curves"])
+    book.curves("a", {k: v for k, v in res.items() if k != "float-MS"},
+                jrec["curves"], test=False,
+                why="W-RCQ weights drawn by the port's generator")
+    un, tr = (res[k] for k in ("W-RCQ-t2-untrained", "W-RCQ-t2-trained"))
+    for snr in (3.0, 3.5):
+        i = [round(s, 2) for s in tr.snr_values].index(snr)
+        fu, ft = un.frame_error_rates[i], tr.frame_error_rates[i]
+        print(f"  (a) @ {snr} dB: trained FER {ft:.4g} against untrained "
+              f"{fu:.4g} (JAX {jrec['curves']['W-RCQ-t2-trained']['frame_error_rates'][i]:.4g} "
+              f"against {jrec['curves']['W-RCQ-t2-untrained']['frame_error_rates'][i]:.4g})"
+              f"  [{card}]")
+        if not ft < fu:
+            raise AssertionError(f"(a) training did not pay at {snr} dB")
+    print("  (a) train_wrcq whole: "
+          f"{rep['train_epochs']} epochs (the JAX record "
+          f"{jrec['train_epochs']}), final loss "
+          f"{rep['final_train_loss']:.5f} (JAX "
+          f"{jrec['final_train_loss']:.5f}), accuracy "
+          f"{rep['final_train_accuracy']:.4f}; no launch; "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+
+
+def phase17_rate_specific(dev, card, tmp, record, book):
+    """(b): the rate_specific twin with its defaults, no launch; MS
+    Fisher-tested at all 15 points, the trained arms beside the record."""
+    from ldpc_tpu_torch.cli import rate_specific as rs
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rep = rs.run(out_path=os.path.join(tmp, "rate_specific.json"),
+                 verbose=False, device=dev)
+    torch.cuda.synchronize()
+    only_k1("(b)", read_counts(), 0)
+    jrec = record["rate_specific"]["rates"]
+    if list(rep["rates"]) != list(jrec):
+        raise AssertionError(f"(b) rates {list(rep['rates'])}")
+    for r, v in rep["rates"].items():
+        res = curves_of(v)
+        if list(res) != list(jrec[r]["curves"]) or v["n"] != jrec[r]["n"]:
+            raise AssertionError(f"(b) rate {r}: curves {list(res)}")
+        book.curves(f"b {r}", {"MS": res["MS"]}, jrec[r]["curves"])
+        book.curves(f"b {r}", {"W-RCQ-trained": res["W-RCQ-trained"]},
+                    jrec[r]["curves"], test=False,
+                    why="W-RCQ weights drawn by the port's generator")
+        print(f"  (b) rate {r} (n={v['n']}): final loss "
+              f"{v['final_train_loss']:.5f} (JAX "
+              f"{jrec[r]['final_train_loss']:.5f})")
+    print(f"  (b) rate_specific whole (k={rep['k']}); "
+          f"no launch; {time.perf_counter() - t0:.1f} s  [{card}]")
+
+
+def phase17_qc9472(dev, card, tmp, record, book):
+    """(c): the train_wrcq_qc9472 twin at lift 256 with its training cut
+    to P17_TQ_SAMPLES frames an epoch, no launch (the QC engine route);
+    float-MS at 6.0 dB Fisher-tested, the rest beside the record."""
+    from ldpc_tpu_torch.cli import train_wrcq_qc9472 as tq
+
+    t0 = time.perf_counter()
+    reset_counts()
+    full = tq.NUM_SAMPLES
+    tq.NUM_SAMPLES = P17_TQ_SAMPLES
+    try:
+        rep = tq.run(out_path=os.path.join(tmp, "train_wrcq_qc9472.json"),
+                     verbose=False, device=dev, **P17_TQ)
+    finally:
+        tq.NUM_SAMPLES = full
+    torch.cuda.synchronize()
+    only_k1("(c)", read_counts(), 0)
+    res = curves_of(rep)
+    jrec = record["train_wrcq_qc9472"]
+    if list(res) != list(jrec["curves"]) or rep["params"] != jrec["params"]:
+        raise AssertionError(f"(c) curves {list(res)}, params "
+                             f"{rep['params']}")
+    book.curves("c", {"float-MS": res["float-MS"]}, jrec["curves"])
+    book.curves("c", {k: v for k, v in res.items() if k != "float-MS"},
+                jrec["curves"], test=False,
+                why="cut-trained, weights drawn by the port's generator")
+    print(f"  (c) train_wrcq_qc9472 at lift {P17_TQ['lift']}: training cut "
+          f"to {P17_TQ_SAMPLES} frames an epoch ({P17_TQ_SAMPLES // tq.BATCH}"
+          f" steps of the program's {full // tq.BATCH}), at most "
+          f"{P17_TQ['epochs']} epochs of the program's 8; ran "
+          f"{rep['train_epochs']} (the JAX record {jrec['train_epochs']}: "
+          f"the accuracy early stop), final loss "
+          f"{rep['final_train_loss']:.5f} (JAX "
+          f"{jrec['final_train_loss']:.5f}); params {rep['params']} (JAX "
+          f"{jrec['params']}); simulation whole at {P17_TQ['frames']} "
+          f"frames; no launch; {time.perf_counter() - t0:.1f} s  [{card}]")
+
+
+def phase17_deep(dev, card, root, record, book):
+    """(d): rate_specific_deep's decoders at lift 86; K1 held to its
+    plain version at each campaign shape (W-NMS-RCQ on its initial tables
+    first), both candidates trained for one step (no launch) and saved,
+    then the campaign at P17_DEEP's points, K1's launches counted against
+    the waves; returns (K1's launches, max |d posterior|)."""
+    import tempfile
+
+    from ldpc_tpu_torch.cli import deep_fer
+    from ldpc_tpu_torch.cli import rate_specific_deep as rsd
+    from ldpc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    decs = rsd.decoders(dev)
+    nms, orcq = (name for _, name in rsd.CANDIDATES)
+    shapes = ((rsd.T1, rsd.WAVE), (rsd.T, rsd.BUDGET), (rsd.T, rsd.WAVE))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n_pb = sum(not v for v in shared_pairs(decs[nms]).values())
+    if n_pb != rsd.T * decs[nms].qc.mb:
+        raise AssertionError(f"(d) {nms}'s initial tables share (beta, "
+                             f"alpha) on {rsd.T * decs[nms].qc.mb - n_pb} "
+                             f"(iteration, row) pairs")
+    err, _ = phase16_checks(dev, card, [
+        (f"{nms} (initial)", decs[nms], T_, B_, False) for T_, B_ in shapes],
+        gen, P17_CHECK_SNR)
+    torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    full = rsd.NUM_SAMPLES
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.chdir(tmp)
+        rsd.NUM_SAMPLES = P17_RSD_SAMPLES
+        try:
+            reset_counts()
+            t1 = time.perf_counter()
+            hists = rsd.train(decs, P17_RSD_EPOCHS, verbose=False)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t1
+            c_tr = read_counts()
+            saved = {name: load_checkpoint(rsd.checkpoint_dir(tag))
+                     for tag, name in rsd.CANDIDATES}
+        finally:
+            rsd.NUM_SAMPLES = full
+            os.chdir(cwd)
+    only_k1("(d) training", c_tr, 0)
+    for name, w in saved.items():
+        if not all(torch.equal(w[k], decs[name].weights[k].cpu())
+                   for k in ("beta", "alpha")):
+            raise AssertionError(f"(d) {name}: the saved tables differ")
+    steps = len(rsd.CANDIDATES) * P17_RSD_EPOCHS * max(
+        1, P17_RSD_SAMPLES // rsd.BATCH)
+    print(f"  (d) training cut to {P17_RSD_EPOCHS} epoch of "
+          f"{P17_RSD_SAMPLES} frames a candidate (the program's 24 epochs "
+          f"of {full}): final losses " + ", ".join(
+              f"{t} {h['training_losses'][-1]:.5f}" for t, h in hists.items())
+          + f"; {steps} steps and {len(rsd.CANDIDATES) * P17_RSD_EPOCHS} "
+          f"640-frame validations in {t_train:.1f} s "
+          f"({t_train / steps:.1f} s a step with its validation); tables "
+          f"saved and reloaded equal; no launch  [{card}]")
+    print("  (d) (iteration, base row) pairs on K1's per-block route: " +
+          ", ".join(f"{name} {sum(not v for v in shared_pairs(dec).values())}"
+                    f" of {rsd.T * dec.qc.mb}" for name, dec in decs.items()))
+    e2, k_ms = phase16_checks(dev, card, [
+        (name, dec, T_, B_, False) for name, dec in decs.items()
+        for T_, B_ in shapes], gen, P17_CHECK_SNR)
+    err = max(err, e2)
+    for dec in decs.values():
+        print(k1_facts(dec, card))
+    torch.cuda.empty_cache()
+    print(f"  (d) campaign cut: {[(n, s) for n, s in P17_DEEP]} (the "
+          f"program: 2.6-4.0 dB in 0.2 dB steps); waves {rsd.WAVE}, budget "
+          f"{rsd.BUDGET}, 100 errors, min frames {rsd.MIN_FRAMES}, frame cap "
+          f"2e7")
+    t2 = time.perf_counter()
+    reset_counts()
+    want, curves, kinds = 0, {}, {}
+    for name, snrs in P17_DEEP:
+        cfg = rsd.campaign_config(snr_lo=min(snrs), snr_hi=max(snrs),
+                                  device=dev)
+        res, sim = deep_fer.sweep({name: decs[name]}, cfg, checkpoints=None,
+                                  verbose=False)
+        if list(res) != [name] or [round(s, 2) for s in
+                                   res[name].snr_values] != list(snrs):
+            raise AssertionError(f"(d) {name}: curves {res}")
+        curves[name], kinds[name] = res[name], sim.wave_kinds[name]
+        want += sum(2 * k.get("compacted", 0) + 4 * k.get("fallback", 0)
+                    for k in kinds[name])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    only_k1("(d) campaign", counts, want)
+    if set(curves) != set(decs):
+        raise AssertionError(f"(d) curves of {list(curves)}")
+
+    def rate(name, i):
+        r = curves[name]
+        return (f", {r.total_frames[i] / r.simulation_times[i]:.1f} "
+                f"frames/s ({r.simulation_times[i]:.2f} s), avg iterations "
+                f"{r.average_iterations[i]:.4f}, waves {kinds[name][i]}")
+
+    jc = record["rate_specific_deep"]["curves"]
+    book.curves("d", {rsd.OMS: curves[rsd.OMS]}, jc, extra=rate)
+    book.curves("d", {k: curves[k] for k in (nms, orcq)}, jc, test=False,
+                extra=rate)
+    r, k = curves[rsd.OMS], kinds[rsd.OMS][-1]
+    if set(k) == {"compacted"}:
+        per = 1e3 * r.simulation_times[-1] / k["compacted"]
+        st1 = k_ms[rsd.OMS, rsd.T1, rsd.WAVE]
+        st2 = k_ms[rsd.OMS, rsd.T, rsd.BUDGET]
+        print(f"  (d) {rsd.OMS} @ {r.snr_values[-1]:.2f} dB: a compacted "
+              f"wave {per:.3f} ms; K1 stage 1 (B={rsd.WAVE}, T={rsd.T1}) "
+              f"{st1:.3f} ms + stage 2 (B={rsd.BUDGET}, T={rsd.T}) "
+              f"{st2:.3f} ms alone, the rest {per - st1 - st2:.3f} ms  "
+              f"[{card}]")
+    print(f"  (d) {time.perf_counter() - t0:.1f} s (campaign "
+          f"{time.perf_counter() - t2:.1f} s), K1 launches {counts['K1']} "
+          f"(the {(len(decs) + 1) * len(shapes)} checks' not counted)")
+    return counts["K1"], err
+
+
+def phase17(dev, card):
+    """The W-RCQ training and rate-specific programs' twins at the
+    programs' widths; returns K1's launches and the largest posterior
+    difference."""
+    import tempfile
+
+    print("[17 W-RCQ training and rate-specific twins]")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    record = {}
+    for prog in ("train_wrcq", "rate_specific", "train_wrcq_qc9472",
+                 "rate_specific_deep"):
+        with open(os.path.join(root, "experiments",
+                               f"{prog}_results.json")) as f:
+            record[prog] = json.load(f)
+    book = FisherBook(card)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        phase17_train_wrcq(dev, card, tmp, record, book)
+        torch.cuda.empty_cache()
+        phase17_rate_specific(dev, card, tmp, record, book)
+        torch.cuda.empty_cache()
+        phase17_qc9472(dev, card, tmp, record, book)
+    torch.cuda.empty_cache()
+    k1, err = phase17_deep(dev, card, root, record, book)
+    secs = time.perf_counter() - t_phase
+    print(f"  {book.tested} points Fisher-tested against the JAX records; "
+          f"K1 launches in phase 17 {k1} (all in (d)), no K4, K5 or K6; "
+          f"phase {secs:.1f} s (limit {P17_LIMIT} s)")
+    if book.failed:
+        raise AssertionError(f"points off the JAX records (p < {P15_P}): "
+                             f"{book.failed}")
+    if secs > P17_LIMIT:
+        raise AssertionError(f"phase 17 took {secs:.1f} s, over "
+                             f"{P17_LIMIT} s")
+    return dict(K1=k1, k1_err=err)
+
+
 def run(design, de):
-    """Phases 1-16; ``design`` and ``de`` are the result handles of
+    """Phases 1-17; ``design`` and ``de`` are the result handles of
     :func:`bench_design` and :func:`de_data` running in a worker
     process."""
     import ldpc_tpu_torch as lt
@@ -3025,7 +3351,10 @@ def run(design, de):
     p15 = phase15(dev, card)
     torch.cuda.empty_cache()
     p16 = phase16(dev, card)
+    torch.cuda.empty_cache()
+    p17 = phase17(dev, card)
 
+    print(f"[script] {time.perf_counter() - T_START:.1f} s from the start")
     print(card)
     k4 = k4_times[SIM_WAVE]
     print(json.dumps({"kernels": [{
@@ -3034,9 +3363,9 @@ def run(design, de):
         "source": "ldpc_tpu_torch/csrc/fused_layered.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
         "launches": (launches + p12_launches + p13["K1"] + p14["K1"] +
-                     p15["K1"] + p16["K1"]),
+                     p15["K1"] + p16["K1"] + p17["K1"]),
         "max_abs_err": max(max_err, p12_err, p14["k1_err"], p15["k1_err"],
-                           p16["k1_err"]),
+                           p16["k1_err"], p17["k1_err"]),
         "ms": times[256][0],
         "plain_ms": times[256][1],
         "bound_ms": k1_bound[0],
