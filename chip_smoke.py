@@ -69,11 +69,11 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    layered T=6: W-OMS-RCQ, sharing type 2, on QC(9472, 8192)) rebuilt from
    their recipes with the port's initial weights, trained through
    ``PosteriorJointTrainer`` with the configurations of
-   ``experiments/accuracy_bc3.py`` (B=128, 8 steps, one ``train_epoch``)
+   ``experiments/accuracy_bc3.py`` (B=128, 4 steps, one ``train_epoch``)
    and ``experiments/train_layered_short.py`` (cosine with 8 warmup
    updates: 4 steps, the first at learning rate 0, so its weights stay);
    each step's loss, CUDA-event time and peak memory, the CUDA launches of
-   one step (torch.profiler); one B=16 batch stepped twice on the card and
+   one layered step (torch.profiler); one B=16 batch stepped twice on the card and
    on a CPU copy of the flooding decoder, held to float tolerance; the
    gradient analyzer (``torch.func.vmap``) on 32 frames at 6.5 dB, four
    of its norms recomputed one frame at a time; no K1, K4, K5 or K6
@@ -95,9 +95,10 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    equal to the CPU encoder's, decoded at 6.25 dB by the bench decoder
    (no early exit) with the FER inside a 4-sigma two-proportion band of
    the all-zero FER and every correct frame giving back its message;
-   (c) ``experiments/floor_is.py``'s two arms at 3.6 dB (PBRL QC rate 1/3,
-   lift 86, random and precoded; RCQ bc=4 6-11-16, bv=8, layered T=10,
-   fused bf16): its trapping-set search and class choice, the
+   (c) ``experiments/floor_is.py``'s two arms at 3.6 dB through its twin
+   ``ldpc_tpu_torch/cli/floor_is.py`` (PBRL QC rate 1/3, lift 86, random
+   and precoded; RCQ bc=4 6-11-16, bv=8, layered T=10, fused bf16): its
+   trapping-set search, class choice and estimates, the
    multiplicities equal to ``experiments/floor_is_results.json``'s, K1 held
    to its plain version bit for bit in f32 and bf16 on 256 biased frames
    of each arm, up to 3 exemplars a class (shift 1.6, 2^15 samples,
@@ -201,8 +202,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    the untrained at 3.0 and 3.5 dB; (b) ``rate_specific`` whole (the PBRL
    family at k=96, three rates; no launch), MS Fisher-tested at all 15
    points; (c) ``train_wrcq_qc9472`` at lift 256 (the QC engine, no
-   launch), training cut to 2 steps an epoch, the simulation whole,
-   float-MS at 6.0 dB Fisher-tested; (d) ``rate_specific_deep`` at lift
+   launch), training cut to 2 steps an epoch, the simulation to 8,192
+   frames a point (the program's 16,384), float-MS at 6.0 dB
+   Fisher-tested; (d) ``rate_specific_deep`` at lift
    86: K1 held to its plain version bit for bit at stage 1 (T=3,
    B=32768), stage 2 (T=10, B=4096) and the fallback's whole decode
    (T=10, B=32768) for W-NMS-RCQ on its initial tables, then for
@@ -216,6 +218,33 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    The trained and untrained W-RCQ arms are printed beside the JAX
    records, not tested (their weights come from the port's generator);
    no K4, K5 or K6 launch in the phase, which must end within 180 s.
+18. the PBRL floor programs' twins (``ldpc_tpu_torch/cli/``) at the
+   programs' codes, waves, budgets and error targets (only SNR points and
+   frame caps cut, each cut printed), only K1 launching, held first to
+   its plain version bit for bit at every (decoder, iterations, batch)
+   the campaigns launch, each timed against its bound with K1's
+   registers, shared memory, check-state placement and CTAs per SM:
+   ``pbrl_bc5``'s four arms (RCQ bc=4 and bc=5 with the closed-form
+   quantizer, T=10 and 20) at stage 1 (T=5, B=32768), stage 2 (B=4096)
+   and, at T=20, the fallback's whole decode (B=32768);
+   ``pbrl_lift_floor``'s two arms (n = 3096 and 9288) at stage 1 (T=2,
+   B=32768), stage 2 (T=10, B=4096) and the fallback; ``pbrl_precode``'s
+   random RCQ decoder and its precoded RCQ and OMS decoders (n = 3182, 86
+   bits punctured) at stage 1 and stage 2, on LLRs punctured as the
+   simulator's mask does; an arm checked without the fallback's whole
+   decode fails the phase if one of its waves falls back. (a)
+   ``pbrl_bc5`` at 2.6 dB ({5, T}, 32768-frame waves, budget 4096, 100
+   errors); (b) the ``pbrl_lift_floor`` twin's ``run`` at 2.8 and 3.2 dB
+   (``simulate_single_snr``, {2, 10}, seed 11); (c) ``pbrl_precode``'s
+   random and precoded RCQ arms at 2.6 dB and its OMS arm there capped at
+   2^22 frames (printed), every K1 launch on the precoded code checked
+   for zeros at the punctured positions as it reaches the kernel; (d)
+   ``trapping_spectrum`` whole (five codes, host numpy, in the worker
+   process beside phases 1-11), its spectra and min-b fingerprints equal
+   to ``experiments/trapping_spectrum_results.json``. K1's launches equal
+   2 a compacted wave and 4 a fallback; every point whose JAX record has
+   at least 20 errors and 20 successes passes Fisher's exact test at
+   p >= 1e-3; no K4, K5 or K6 launch; the phase must end within 150 s.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -331,7 +360,8 @@ PB_SIM = dict(snr_range=(PB_SNR, PB_SNR), snr_step=0.25, max_frames=65536,
 PB_REF_FER, PB_REF_FRAMES = 54307 / 65536, 65536
 # phase 11: training at full width on the zoo's two operating recipes
 # (zoo/<entry>/spec.json), with fresh weights from the port's generator.
-# Flooding: experiments/accuracy_bc3.py:96-103's configuration, 8 steps.
+# Flooding: experiments/accuracy_bc3.py:96-103's configuration, 4 steps
+# (a depth cut: the script's time limit holds phases 1-18).
 # Layered: experiments/train_layered_short.py:85-90's, 4 steps; its
 # decay_steps is the run the zoo entry came from (32 epochs x 2048 // 128
 # batches = 512; the 4 steps taken here are inside the 8-step warmup)
@@ -339,7 +369,7 @@ TR_CFG = dict(batch_size=128, learning_rate=2e-3, snr_range=(5.5, 7.5),
               early_stop_accuracy=2.0, seed=0)
 TR_LAYERED_CFG = dict(TR_CFG, lr_schedule="cosine", warmup_steps=8,
                       decay_steps=512)
-TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 8, 4, 16
+TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 4, 4, 16
 TR_ANALYZE = dict(num_samples=32, snr_db=6.5)
 # card vs CPU, one step: the loss (a mean) and the accuracy to a few
 # roundings, the gradient norm to the gradients' tolerance (the backward
@@ -360,15 +390,11 @@ DESIGN_TRAJECTORY = (0.008283842221786703, 0.0015349381231453455,
 # (b) encoded frames through the bench decoder (no early exit: at 6.25 dB
 # S=128 would overflow), against all-zero frames (bench.py:11: FER ~0.06)
 ENC_B, ENC_SNR, ENC_K = 32768, 6.25, 8196
-# (c) experiments/floor_is.py's two arms at 3.6 dB: its decoder, its
-# trapping-set search and class choice, its IS settings; the JAX results
-# are experiments/floor_is_results.json
-FLOOR_KW = dict(kind="rcq", bc=4, bv=8,
-                quantizer_params=((6.0, 1.3), (11.0, 1.3), (16.0, 1.3)),
-                v2c_quantizer_params=((4.0, 1.0), (8.0, 1.0), (12.0, 1.0)),
-                max_iterations=10, layered=True)
-FLOOR_SNR, FLOOR_SHIFT, FLOOR_SAMPLES, FLOOR_BATCH = 3.6, 1.6, 2 ** 15, 2 ** 11
-FLOOR_EXEMPLARS, FLOOR_CLASSES, FLOOR_SEED = 3, 4, 20260818
+# (c) experiments/floor_is.py's two arms at 3.6 dB through its twin
+# (ldpc_tpu_torch/cli/floor_is.py: its decoder, trapping-set search, class
+# choice, seeds and batches of 2^11) at the program's shift and samples;
+# the JAX results are experiments/floor_is_results.json
+FLOOR_SNR, FLOOR_SHIFT, FLOOR_SAMPLES = 3.6, 1.6, 2 ** 15
 # phase 13: the mesh paths. (a) phase 9's wave without early exit through
 # the zoo's fused decoder (K4), and phase 9's compaction; (b) two gloo
 # ranks on the card: a K4 wave of 2x4096 frames at 6.5 dB, the bench
@@ -427,7 +453,8 @@ P16_EE_TESTED = ("survivors_plain_t1=2_B8192",
 # lift 256, lift 86), batches, waves and budgets; only SNR points, frame
 # caps, epochs and num_samples are cut, each cut printed. train_wrcq and
 # rate_specific run whole (the programs' defaults); train_wrcq_qc9472's
-# simulation runs whole, its training cut to 2 steps an epoch (256 of the
+# simulation cut to 8,192 frames a point (the program's 16,384), its
+# training cut to 2 steps an epoch (256 of the
 # program's 1024 frames) for at most 2 epochs (the trainer's accuracy
 # early stop at 0.99 ends it after the first: the JAX record's
 # "train_epochs": 1); rate_specific_deep's training cut to one step of
@@ -435,11 +462,25 @@ P16_EE_TESTED = ("survivors_plain_t1=2_B8192",
 # program's 2e7-frame cap and 100 errors. K1 is first held to its plain
 # version at every (decoder, iterations, batch) the campaign launches (and
 # W-NMS-RCQ on its initial tables), on LLRs drawn at P17_CHECK_SNR
-P17_TQ, P17_TQ_SAMPLES = dict(lift=256, frames=16384, epochs=2), 256
+P17_TQ, P17_TQ_SAMPLES = dict(lift=256, frames=8192, epochs=2), 256
 P17_RSD_EPOCHS, P17_RSD_SAMPLES = 1, 128
 P17_DEEP = (("OMS-6bit", (2.6, 2.8)), ("W-NMS-RCQ-4bit-trained", (3.2,)),
             ("W-OMS-RCQ-4bit-trained", (3.2,)))
 P17_CHECK_SNR, P17_LIMIT = 3.2, 180
+# phase 18: the PBRL floor programs' twins (ldpc_tpu_torch/cli/) at the
+# programs' codes, waves, budgets and error targets; only SNR points and
+# frame caps are cut, each cut printed: (a) pbrl_bc5's four arms at 2.6 dB;
+# (b) pbrl_lift_floor's two arms at 2.8 and 3.2 dB; (c) pbrl_precode's
+# RCQ arms at 2.6 dB, its OMS arm there capped at 2^22 frames and printed
+# only (the JAX record: 7 errors in 20,021,248 frames); (d)
+# trapping_spectrum whole, in the worker process beside phases 1-11. K1
+# is first held to its plain version at every (decoder, iterations,
+# batch) the campaigns launch, on LLRs drawn at P18_CHECK_SNR; the whole
+# decode of a fallback wave only on the arms that fall back
+P18_BC5_SNRS, P18_LIFT_SNRS, P18_PRECODE_SNRS = (2.6,), (2.8, 3.2), (2.6,)
+P18_OMS_CAP, P18_CHECK_SNR, P18_LIMIT = 2 ** 22, 2.8, 150
+# the three programs' wave and survivor budget
+P18_WAVE, P18_BUDGET = 32768, 4096
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -464,13 +505,22 @@ def small_base(mb=3, nb=8, lift=16, density=0.8, seed=0):
     return base
 
 
+def closed_of(dec):
+    """Whether ``dec``'s quantizers take their closed form wherever the
+    ladder has (C, gamma) parameters: its spec's ``closed_qdq`` or its
+    fused options' (``experiments/pbrl_bc5.py:65`` sets the option)."""
+    return bool(dec.spec.closed_qdq or
+                (dec.qc_options or {}).get("closed_qdq"))
+
+
 def kernel_on(x, dec, T_, lean, flooding=False):
-    """The fused decode's wrapper (the CUDA kernel for a CUDA tensor)."""
+    """The fused decode's wrapper (the CUDA kernel for a CUDA tensor), with
+    the decoder's ``closed_qdq``."""
     import ldpc_tpu_torch as lt
     fn = (lt.qc_fused_decode_batch if flooding
           else lt.qc_fused_decode_batch_layered)
     return fn(x, dec.weights, qc=dec.qc, spec=dec.spec, max_iterations=T_,
-              dtype=x.dtype, lean=lean)
+              dtype=x.dtype, lean=lean, closed_qdq=closed_of(dec))
 
 
 def plain_on(x, dec, T_, lean, flooding=False):
@@ -479,7 +529,7 @@ def plain_on(x, dec, T_, lean, flooding=False):
     fn = (fused._fused_flooding_plain if flooding
           else fused._fused_layered_plain)
     return fn(x, dec.weights, qc=dec.qc, spec=dec.spec, max_iterations=T_,
-              dtype=x.dtype, lean=lean)
+              dtype=x.dtype, lean=lean, closed_qdq=closed_of(dec))
 
 
 def compare(name, dec, llr, dtype, lean, flooding=False):
@@ -561,10 +611,11 @@ def qdq_ops(mode, levels):
             "power": 16}[mode]
 
 
-def edge_ops(spec, flooding):
+def edge_ops(spec, flooding, closed=False):
     """float32 operations of the layered (K1) or flooding (K4) decode
-    function per iteration: (per edge, per c2v computed). A transcendental
-    counts as one, per-iteration constants are not counted
+    function per iteration: (per edge, per c2v computed), the quantizers
+    in the form ``closed`` (the ``closed_qdq`` option) routes them to. A
+    transcendental counts as one, per-iteration constants are not counted
     (:func:`qdq_ops`). The c2v transform, CN quantizer and rounding are
     counted once per c2v the function must compute (:func:`c2v_computed`):
     a check of a row whose blocks share (beta, alpha) sends at most four
@@ -574,7 +625,8 @@ def edge_ops(spec, flooding):
     from ldpc_tpu_torch.decode.engine import qdq_mode
 
     def q_ops(qparams, levels):
-        return qdq_ops(qdq_mode(qparams, levels, spec.closed_qdq), levels)
+        return qdq_ops(qdq_mode(qparams, levels, closed or spec.closed_qdq),
+                       levels)
 
     quantized = spec.kind in ("rcq", "wrcq", "orcq")
     transform = {"nms": 2, "oms": 3, "rcq": 1, "wrcq": 2, "orcq": 3}[
@@ -632,7 +684,7 @@ def bound(dec, B, T_, flooding, lean=True, elt=2):
     n, L = dec.code.n, dec.qc.lift
     E = dec.qc.num_blocks * L
     nbytes = B * n * (elt + (1 if lean else elt)) + B
-    per_edge, send = edge_ops(dec.spec, flooding)
+    per_edge, send = edge_ops(dec.spec, flooding, closed_of(dec))
     ops = B * (E * T_ * per_edge + L * c2v_computed(dec, T_) * send)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
@@ -860,9 +912,11 @@ def k1_facts(dec, card):
     lib = _build.load_library()
     sizes = (qc.nb, qc.mb, qc.num_blocks, qc.lift,
              max(len(r) for r in qc.row_blocks), 1)
-    modes = (fused._QMODES[qdq_mode(spec.qparams, spec.q_levels)],
+    closed = closed_of(dec)
+    modes = (fused._QMODES[qdq_mode(spec.qparams, spec.q_levels, closed)],
              spec.q_levels,
-             fused._QMODES[qdq_mode(spec.v2c_qparams, spec.v2c_levels)],
+             fused._QMODES[qdq_mode(spec.v2c_qparams, spec.v2c_levels,
+                                    closed)],
              spec.v2c_levels)
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     onchip = int(lib.ldpc_fused_layered_smem(*sizes, *modes, 1) <= limit)
@@ -1249,8 +1303,14 @@ def phase11(dev, card):
         t0 = time.perf_counter()
         rec, first = timed_epoch(tr, steps)
         t1 = time.perf_counter()
-        batch = tr.sample()
-        launches = cuda_launches(lambda: tr.train_step(*batch), cpu=False)
+        launches = None
+        # torch.profiler counts the launches of the layered step only:
+        # tracing the flooding step's ~270,600 launches took ~50 s of the
+        # script's time on an H100
+        if name == "layered":
+            batch = tr.sample()
+            launches = cuda_launches(lambda: tr.train_step(*batch),
+                                     cpu=False)
         t2 = time.perf_counter()
         if name == "layered" and not all(torch.equal(first[k], w0[k])
                                          for k in w0):
@@ -1267,7 +1327,8 @@ def phase11(dev, card):
                                  "ones (learning rate 0)"
                                  if name == "layered" else ""))
         print(step_line(name, rec, launches, card) + f"; epoch {t1 - t0:.1f}"
-              f" s, the profiled step {t2 - t1:.1f} s")
+              f" s" + (f", the profiled step {t2 - t1:.1f} s"
+                       if name == "layered" else ""))
         decs[name], out[name] = dec, (rec, launches)
 
     # card = CPU: one numpy batch, two steps of the flooding recipe
@@ -1502,123 +1563,89 @@ class CheckedDecoder:
         return self.dec(llr)
 
 
-def floor_arm(dev, precode):
-    """``experiments/floor_is.py``'s decoder, trapping-set search and class
-    choice for one arm."""
-    import ldpc_tpu_torch as lt
-    from ldpc_tpu_torch.design import find_trapping_sets
-    B, L, *pc = lt.create_pbrl_qc_protograph(k=1032, rate=1 / 3,
-                                             precode=precode)
-    punct = tuple(range(L * pc[0][0], L * (pc[0][0] + 1))) if precode \
-        else None
-    code = lt.create_qc_code(B, lift=L, max_iterations=10)
-    dec = lt.make_decoder(code, qc=lt.build_qc_graph(B, L),
-                          qc_options=dict(fused=True, dtype=torch.bfloat16),
-                          device=dev, **FLOOR_KW)
-    t0 = time.perf_counter()
-    rep = find_trapping_sets(code.H, a_max=8, b_max=3, restarts=3,
-                             max_sets=10000)
-    t_ts = time.perf_counter() - t0
-    chosen = {}
-    for ts in rep.sets:
-        chosen.setdefault((ts.a, ts.b), []).append(ts)
-    cc = rep.class_counts()
-    classes = sorted(chosen, key=lambda ab: (cc[ab]["absorbing"] == 0,
-                                             ab[1], ab[0]))[:FLOOR_CLASSES]
-    for ab in classes:
-        absb = [t for t in chosen[ab] if t.absorbing]
-        if absb:
-            chosen[ab] = absb
-    mult = {ab: cc[ab]["absorbing"] or cc[ab]["unique"] for ab in classes}
-    return dec, punct, classes, chosen, mult, t_ts
-
-
 def phase12_floor(dev, card):
-    """(c) Both arms of the importance-sampled floor at 3.6 dB through K1;
-    returns the random arm's decoder, an exemplar and the estimates."""
-    import ldpc_tpu_torch as lt
-    from ldpc_tpu_torch.sim import biased_awgn_llr, estimate_trapping_floor
+    """(c) Both arms of the importance-sampled floor at 3.6 dB through K1,
+    by ``cli/floor_is``: its arms, trapping-set search, class choice and
+    estimates; returns the random arm's decoder, an exemplar, the
+    estimates, the IS batches and K1's largest posterior difference."""
+    from ldpc_tpu_torch.cli import floor_is
+    from ldpc_tpu_torch.sim import biased_awgn_llr
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "experiments", "floor_is_results.json")) as f:
         ref = json.load(f)
     snr = str(FLOOR_SNR)
     estimates, keep, batches, k1_err = {}, None, 0, 0.0
-    for arm_i, (arm, precode) in enumerate((("random", False),
-                                            ("precoded", True))):
-        dec, punct, classes, chosen, mult, t_ts = floor_arm(dev, precode)
-        jref = ref[arm]["classes"][snr]
-        print(f"  (c) {arm} arm: PBRL QC ({dec.code.n}, {dec.qc.lift}-lift "
-              f"{dec.qc.mb}x{dec.qc.nb} base), RCQ bc=4 6-11-16, layered "
-              f"T=10, K1 bf16; trapping sets {t_ts:.1f} s on the host; "
-              f"classes {[(ab, mult[ab]) for ab in classes]}")
+    for arm_i, (name, precode) in enumerate(floor_is.ARMS):
+        arm = floor_is.arm(name, precode, device=dev)
+        dec, punct, classes = arm.decoder, arm.punctured, arm.classes
+        jref = ref[name]["classes"][snr]
+        print(f"  (c) floor_is {name} arm: PBRL QC ({dec.code.n}, "
+              f"{dec.qc.lift}-lift {dec.qc.mb}x{dec.qc.nb} base), RCQ bc=4 "
+              f"6-11-16, layered T=10, K1 bf16; trapping sets "
+              f"{arm.search_s:.1f} s on the host; classes "
+              f"{[(ab, arm.mult[ab]) for ab in classes]}")
         if [f"{a},{b}" for a, b in classes] != list(jref) or any(
-                mult[ab] != jref[f"{ab[0]},{ab[1]}"]["multiplicity"]
+                arm.mult[ab] != jref[f"{ab[0]},{ab[1]}"]["multiplicity"]
                 for ab in classes):
-            raise AssertionError(f"{arm}: classes or multiplicities differ "
+            raise AssertionError(f"{name}: classes or multiplicities differ "
                                  "from floor_is_results.json")
         # K1 on this decoder against its plain version first
-        ts0 = chosen[classes[0]][0]
+        ts0 = arm.chosen[classes[0]][0]
         x, _ = biased_awgn_llr(torch.Generator(device=dev).manual_seed(
             arm_i), 256, dec.code.n, FLOOR_SNR, ts0.variables, FLOOR_SHIFT,
             punctured=punct)
-        errs = uncounted(lambda: [compare(f"floor {arm}", dec, x, dtype,
+        errs = uncounted(lambda: [compare(f"floor {name}", dec, x, dtype,
                                           False)
                                   for dtype in (torch.float32,
                                                 torch.bfloat16)])
         k1_err = max([k1_err] + errs)
-        if arm == "random":
+        if name == "random":
             print(k1_facts(dec, card))
             # K1 against its plain version at an IS batch's shape (bf16)
             xb, _ = biased_awgn_llr(torch.Generator(device=dev).manual_seed(
-                9), FLOOR_BATCH, dec.code.n, FLOOR_SNR, ts0.variables,
+                9), floor_is.BATCH, dec.code.n, FLOOR_SNR, ts0.variables,
                 FLOOR_SHIFT)
             xb = xb.to(torch.bfloat16)
             k_ms = uncounted(lambda: [time_ms(lambda: kernel_on(
                 xb, dec, 10, False), 20) for _ in range(2)])
             p_ms = time_ms(lambda: plain_on(xb, dec, 10, False), 1)
-            b_ms, b_by = bound(dec, FLOOR_BATCH, 10, flooding=False,
+            b_ms, b_by = bound(dec, floor_is.BATCH, 10, flooding=False,
                                lean=False)
-            print(f"  K1 on this decoder, B={FLOOR_BATCH} T=10 bf16: "
+            print(f"  K1 on this decoder, B={floor_is.BATCH} T=10 bf16: "
                   f"{k_ms[0]:.4f} / {k_ms[1]:.4f} ms, plain {p_ms:.2f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by})  [{card}]")
         checked = CheckedDecoder(dec, punct)
         t0 = time.perf_counter()
-        floor = 0.0
+        got = floor_is.estimate_arm(
+            dataclasses.replace(arm, decoder=checked), arm_i, (FLOOR_SNR,),
+            FLOOR_SAMPLES, shift=FLOOR_SHIFT, verbose=False)
+        secs = time.perf_counter() - t0
         for ab in classes:
-            ps = []
-            for i, ts in enumerate(chosen[ab][:FLOOR_EXEMPLARS]):
-                seed = int(np.random.SeedSequence(
-                    [FLOOR_SEED, arm_i, ab[0], ab[1], i]).generate_state(
-                        1, np.uint64)[0])
-                est = estimate_trapping_floor(
-                    checked, [(ab, 1, ts.variables)], snr_db=FLOOR_SNR,
-                    shift=FLOOR_SHIFT, n_samples=FLOOR_SAMPLES,
-                    batch=FLOOR_BATCH, seed=seed, punctured=punct)
-                _, p, rel = est.per_class[ab]
-                pj, relj = jref[f"{ab[0]},{ab[1]}"]["exemplars"][i]
+            key = f"{ab[0]},{ab[1]}"
+            for i, ((p, rel), (pj, relj)) in enumerate(zip(
+                    got["classes"][snr][key]["exemplars"],
+                    jref[key]["exemplars"])):
                 held = rel < 0.5 and relj < 0.5
                 if held and abs(np.log(p / pj)) > 4 * np.hypot(rel, relj):
-                    raise AssertionError(f"{arm} {ab} exemplar {i}: p {p:.3e}"
-                                         f" (rel {rel:.2f}) vs the JAX "
-                                         f"package's {pj:.3e} ({relj:.2f})")
-                ps.append(p)
+                    raise AssertionError(f"{name} {ab} exemplar {i}: p "
+                                         f"{p:.3e} (rel {rel:.2f}) vs the "
+                                         f"JAX package's {pj:.3e} "
+                                         f"({relj:.2f})")
                 print(f"    {ab} exemplar {i}: p {p:.4g} (rel_std {rel:.3g})"
                       f", JAX {pj:.4g} ({relj:.3g}) "
                       f"{'held' if held else 'printed only'}")
-                estimates[f"{arm} {ab[0]},{ab[1]} {i}"] = (p, rel)
-                if keep is None:
-                    keep = (dec, ts, punct)
-            floor += mult[ab] * float(np.mean(ps))
-        secs = time.perf_counter() - t0
+                estimates[f"{name} {key} {i}"] = (p, rel)
+            if keep is None:
+                keep = (dec, arm.chosen[ab][0], punct)
         batches += checked.batches
         punct_note = ("punctured LLRs zero in every batch" if punct else
                       "no puncturing")
-        print(f"  {arm} arm at {FLOOR_SNR} dB: union-bound floor "
-              f"{floor:.4g} (floor_is_results.json "
-              f"{ref[arm]['floor'][snr]:.4g}); {checked.batches} IS batches "
-              f"of {FLOOR_BATCH} ({punct_note}), {secs:.1f} s, "
-              f"{checked.batches * FLOOR_BATCH / secs:.1f} frames/s  "
+        print(f"  {name} arm at {FLOOR_SNR} dB: union-bound floor "
+              f"{got['floor'][snr]:.4g} (floor_is_results.json "
+              f"{ref[name]['floor'][snr]:.4g}); {checked.batches} IS batches "
+              f"of {floor_is.BATCH} ({punct_note}), {secs:.1f} s, "
+              f"{checked.batches * floor_is.BATCH / secs:.1f} frames/s  "
               f"[{card}]; K1 vs plain max|dpost| {max(errs):g}")
     return keep, estimates, batches, k1_err
 
@@ -1632,6 +1659,7 @@ def phase12(dev, card, design):
 
     import ldpc_tpu_torch as lt
     from ldpc_tpu_torch.report import analyze_weight_patterns
+    from ldpc_tpu_torch.cli.floor_is import BATCH
     from ldpc_tpu_torch.sim import biased_awgn_llr
     from ldpc_tpu_torch.utils import (ThroughputCounter, load_checkpoint,
                                       measure_throughput, save_checkpoint,
@@ -1654,16 +1682,16 @@ def phase12(dev, card, design):
     gen = torch.Generator(device=dev).manual_seed(122)
 
     def is_batch():
-        llr, _ = biased_awgn_llr(gen, FLOOR_BATCH, fdec.code.n, FLOOR_SNR,
+        llr, _ = biased_awgn_llr(gen, BATCH, fdec.code.n, FLOOR_SNR,
                                  ts.variables, FLOOR_SHIFT)
         return fdec(llr)
 
-    rate = measure_throughput(is_batch, reps=8) * FLOOR_BATCH
+    rate = measure_throughput(is_batch, reps=8) * BATCH
     tc = ThroughputCounter()
     for _ in range(8):
         tc.start()
         is_batch()
-        tc.stop(FLOOR_BATCH)
+        tc.stop(BATCH)
     with tempfile.TemporaryDirectory(
             dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         with trace(os.path.join(tmp, "trace")) as prof:
@@ -1683,7 +1711,7 @@ def phase12(dev, card, design):
                 for k, v in tree["estimates"].items())
     print(f"  (d) analyze_weight_patterns({ZOO_ENTRY}) on the card = CPU: "
           f"mean beta by check degree {zoo['mean_weight_by_check_degree']}; "
-          f"IS batches (B={FLOOR_BATCH}, T=10) measure_throughput "
+          f"IS batches (B={BATCH}, T=10) measure_throughput "
           f"{rate:.1f} cw/s, ThroughputCounter {tc.codewords_per_sec:.1f} "
           f"cw/s  [{card}]; trace(): {trace_bytes} B Chrome trace, "
           f"{k1_events} K1 kernel events in one IS batch; checkpoint "
@@ -1713,6 +1741,20 @@ def de_data():
     from ldpc_tpu_torch.cli.generate_images import de_curves
     t0 = time.perf_counter()
     return de_curves(), time.perf_counter() - t0
+
+
+def spectrum_data():
+    """``cli/trapping_spectrum``'s report, whole, and its host seconds.
+    Runs in a worker process."""
+    import tempfile
+
+    from ldpc_tpu_torch.cli import trapping_spectrum
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        rep = trapping_spectrum.main(os.path.join(tmp, "spectrum.json"),
+                                     verbose=False)
+    return rep, time.perf_counter() - t0
 
 
 def same_results(name, got, want):
@@ -2405,19 +2447,24 @@ def phase15(dev, card):
 
 
 def phase16_check(dev, card, name, dec, T_, B_, lean, gen,
-                  snr=P16_CHECK_SNR):
+                  snr=P16_CHECK_SNR, punct=None):
     """K1 against its plain version at one spec phase 16 launches (not
-    counted): ``dec`` truncated to ``T_`` iterations (a stage 1) or whole,
-    on ``B_`` frames at ``snr`` dB in bf16, bit for bit (bits, success,
-    iterations, the posterior's bit patterns where it is full); then the
-    kernel timed at that shape against its bound, beside the plain
-    version's one call. Returns (max |d posterior|, kernel ms)."""
+    counted): ``dec`` truncated to ``T_`` iterations (a stage 1, its
+    options kept) or whole, on ``B_`` frames at ``snr`` dB in bf16 (the
+    ``punct`` positions' LLRs multiplied by zero, as the simulator's mask
+    does), bit for bit (bits, success, iterations, the posterior's bit
+    patterns where it is full); then the kernel timed at that shape
+    against its bound, beside the plain version's one call. Returns (max
+    |d posterior|, kernel ms)."""
     import ldpc_tpu_torch as lt
 
     d = dec if T_ == dec.max_iterations else dataclasses.replace(
-        dec, qc_options=None).truncated(T_)
-    x = lt.awgn_llr(gen, torch.zeros((B_, dec.code.n), device=dev),
-                    snr).to(torch.bfloat16)
+        dataclasses.replace(dec, qc_options=None).truncated(T_),
+        qc_options=dec.qc_options)
+    x = lt.awgn_llr(gen, torch.zeros((B_, dec.code.n), device=dev), snr)
+    if punct is not None:
+        x = lt.puncture_llr(x, punct)
+    x = x.to(torch.bfloat16)
     out = uncounted(lambda: kernel_on(x, d, T_, lean))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2435,14 +2482,14 @@ def phase16_check(dev, card, name, dec, T_, B_, lean, gen,
     return err, k_ms
 
 
-def phase16_checks(dev, card, specs, gen, snr=P16_CHECK_SNR):
+def phase16_checks(dev, card, specs, gen, snr=P16_CHECK_SNR, punct=None):
     """:func:`phase16_check` at each ``(name, decoder, iterations, batch,
     lean)`` of ``specs``; returns (max |d posterior|, {(name, iterations,
     batch): kernel ms})."""
     err, ms = 0.0, {}
     for name, dec, T_, B_, lean in specs:
         e, ms[name, T_, B_] = phase16_check(dev, card, name, dec, T_, B_,
-                                            lean, gen, snr)
+                                            lean, gen, snr, punct)
         err = max(err, e)
     return err, ms
 
@@ -2909,8 +2956,9 @@ def phase17_qc9472(dev, card, tmp, record, book):
           f"the accuracy early stop), final loss "
           f"{rep['final_train_loss']:.5f} (JAX "
           f"{jrec['final_train_loss']:.5f}); params {rep['params']} (JAX "
-          f"{jrec['params']}); simulation whole at {P17_TQ['frames']} "
-          f"frames; no launch; {time.perf_counter() - t0:.1f} s  [{card}]")
+          f"{jrec['params']}); simulation at {P17_TQ['frames']} "
+          f"frames a point (the program's 16384); no launch; "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
 
 
 def phase17_deep(dev, card, root, record, book):
@@ -3068,10 +3116,271 @@ def phase17(dev, card):
     return dict(K1=k1, k1_err=err)
 
 
-def run(design, de):
-    """Phases 1-17; ``design`` and ``de`` are the result handles of
-    :func:`bench_design` and :func:`de_data` running in a worker
-    process."""
+def launches_of(kinds):
+    """K1 launches of a fused compacting sweep: 2 a compacted wave, 4 a
+    fallback."""
+    return sum(2 * k.get("compacted", 0) + 4 * k.get("fallback", 0)
+               for k in kinds)
+
+
+def phase18_checks(dev, card, decs):
+    """K1 against its plain version at every (decoder, iterations, batch)
+    phase 18's campaigns launch (``decs``: {name: (decoder, t1, budget,
+    wave, punctured, fallback expected)}), bit for bit in bf16 with the
+    full output, each timed against its bound, and each decoder's K1
+    facts. Returns (max |d posterior|, {(name, T, B): kernel ms})."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    err, ms = 0.0, {}
+    for name, (dec, t1, budget, wave, punct, fallback) in decs.items():
+        shapes = [(t1, wave), (dec.max_iterations, budget)] + (
+            [(dec.max_iterations, wave)] if fallback else [])
+        e, m = phase16_checks(dev, card, [
+            (name, dec, T_, B_, False) for T_, B_ in shapes], gen,
+            P18_CHECK_SNR, punct)
+        err, ms = max(err, e), {**ms, **m}
+        print(k1_facts(dec, card))
+        torch.cuda.empty_cache()
+    return err, ms
+
+
+def phase18_compacted(tag, checks, kinds):
+    """Fails when a wave of an arm checked without the fallback's whole
+    decode (``checks[name]``'s last field False) fell back; ``kinds``:
+    {name: [wave kinds of each point]}."""
+    fell = {k: v for k, v in kinds.items()
+            if not checks[k][5] and any(p.get("fallback") for p in v)}
+    if fell:
+        raise AssertionError(f"({tag}) waves fell back on arms whose whole "
+                             f"decode was not checked: {fell}")
+
+
+def phase18_sweeps(tag, arms, snrs, book, record, why=None):
+    """Each of ``arms`` ({name: (decoder, SimulationConfig)}) swept by
+    ``deep_fer.sweep`` with its own simulator, which must run ``snrs``;
+    the points beside ``record`` (Fisher-tested unless ``why`` says why
+    not). Returns (K1 launches the waves account for, {name:
+    (SimulationResult, wave kinds)})."""
+    from ldpc_tpu_torch.cli import deep_fer
+    want, out = 0, {}
+    for name, (dec, cfg) in arms.items():
+        res, sim = deep_fer.sweep({name: dec}, cfg, checkpoints=None,
+                                  verbose=False)
+        if [round(s, 2) for s in res[name].snr_values] != list(snrs):
+            raise AssertionError(f"({tag}) {name}: SNRs "
+                                 f"{res[name].snr_values}")
+        out[name] = (res[name], sim.wave_kinds[name])
+        want += launches_of(sim.wave_kinds[name])
+
+    def rate(name, i):
+        r, kinds = out[name]
+        return (f", {r.total_frames[i] / r.simulation_times[i]:.1f} "
+                f"frames/s ({r.simulation_times[i]:.2f} s), avg iterations "
+                f"{r.average_iterations[i]:.4f}, waves {kinds[i]}")
+
+    book.curves(tag, {k: v[0] for k, v in out.items()}, record,
+                test=why is None, extra=rate, why=why)
+    return want, out
+
+
+def phase18_lift(dev, root, book, record):
+    """(b): the twin's ``run`` at P18_LIFT_SNRS, each of its
+    ``simulate_single_snr`` calls watched for its wave kinds and seconds,
+    each point Fisher-tested against the JAX record's FER and frames.
+    Returns K1's launches the waves account for and {arm: [wave kinds of
+    each point]}."""
+    import tempfile
+
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.cli import pbrl_lift_floor as lf
+    from ldpc_tpu_torch.sim import SimulationResult
+    from ldpc_tpu_torch.sim.montecarlo import _build_wave
+
+    real, seen = lt.simulate_single_snr, []
+
+    def watched(dec, snr, cfg, *args, **kw):
+        wave = _build_wave(dec, cfg)
+        t0 = time.perf_counter()
+        out = real(dec, snr, cfg, *args, wave_fn=wave, **kw)
+        seen.append((dict(wave.kinds), time.perf_counter() - t0, out))
+        return out
+
+    lt.simulate_single_snr = watched
+    try:
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            rep = lf.run(snrs=P18_LIFT_SNRS, out_path=os.path.join(
+                tmp, "lift.json"), verbose=False, device=dev)
+    finally:
+        lt.simulate_single_snr = real
+    want, kinds = 0, {}
+    for key, (k, secs, (fer, ber, it, nf, ne)) in zip(rep["results"], seen,
+                                                      strict=True):
+        name, snr = key.split("@")
+        snr = float(snr)
+        want += launches_of([k])
+        kinds.setdefault(name, []).append(k)
+        r = SimulationResult(name, [snr])
+        r.add_result(0, fer, ber, it, secs, nf, ne)
+        jp = record[key]
+        je = int(round(jp["fer"] * jp["frames"]))
+        book.curves("b", {name: r}, {name: dict(
+            snr_values=[snr], total_errors=[je],
+            total_frames=[jp["frames"]])}, extra=lambda *_, nf=nf, secs=secs,
+            it=it, k=k: (f", {nf / secs:.1f} frames/s ({secs:.2f} s), avg "
+                         f"iterations {it:.4f}, waves {k}"))
+    return want, kinds
+
+
+def phase18_spectrum(card, spectrum, root):
+    """(d): the worker's trapping-set spectra (``spectrum``'s result, or
+    computed here when it is None) against the JAX record."""
+    t0 = time.perf_counter()
+    rep, secs = spectrum_data() if spectrum is None else spectrum.get()
+    waited = time.perf_counter() - t0
+    with open(os.path.join(root, "experiments",
+                           "trapping_spectrum_results.json")) as f:
+        ref = json.load(f)
+    got = json.loads(json.dumps(rep))
+    for key, v in got.items():
+        print(f"  (d) {key}: {len(v['spectrum'])} classes with b <= 4, "
+              f"min-b fingerprint {v['min_b_fingerprint']}; equal to the "
+              f"JAX record: {v == ref.get(key)}")
+    where = ("here" if spectrum is None else
+             "in the worker process beside phases 1-11")
+    print(f"  (d) trapping_spectrum whole: {secs:.1f} s of host numpy "
+          f"{where}, waited {waited:.1f} s for it here  [{card}]")
+    if got != ref:
+        raise AssertionError("the trapping-set spectra differ from "
+                             "trapping_spectrum_results.json")
+
+
+def phase18(dev, card, spectrum=None):
+    """The PBRL floor programs' twins at the programs' widths; returns K1's
+    launches and the largest posterior difference. ``spectrum`` is the
+    handle of :func:`spectrum_data` in the worker process; None runs it
+    here, after the campaigns (phase 18 alone)."""
+    from ldpc_tpu_torch.cli import pbrl_bc5 as bc5
+    from ldpc_tpu_torch.cli import pbrl_lift_floor as lf
+    from ldpc_tpu_torch.cli import pbrl_precode as pc
+    from ldpc_tpu_torch.decode import fused
+
+    print("[18 PBRL floor twins]")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    record = {}
+    for prog in ("pbrl_bc5", "pbrl_lift_floor", "pbrl_precode"):
+        with open(os.path.join(root, "experiments",
+                               f"{prog}_results.json")) as f:
+            record[prog] = json.load(f)
+    book = FisherBook(card)
+    a = bc5.decoders(dev)
+    b = lf.decoders(dev)
+    c = {name: (dec, punct) for name, dec, punct in pc.arms(dev)}
+    wave, budget = P18_WAVE, P18_BUDGET
+    checks = {name: (a[name], bc5.T1, budget, wave, None,
+                     a[name].max_iterations == 20) for name in a}
+    for name in b:
+        checks[name] = (b[name], lf.T1, budget, wave, None, True)
+    for name in c:
+        checks[name] = (c[name][0], pc.T1, budget, wave, c[name][1], False)
+    err, k_ms = phase18_checks(dev, card, checks)
+    for stage in ((bc5.T1, wave), (10, budget)):
+        r = [k_ms[f"RCQ-bc{q}-T10", stage[0], stage[1]] for q in (5, 4)]
+        print(f"  K1 at B={stage[1]}, T={stage[0]}: bc=5 closed form "
+              f"(power) {r[0]:.3f} ms against bc=4 (staircase) {r[1]:.3f} "
+              f"ms, {r[0] / r[1]:.3f}x  [{card}]")
+    print(f"  K1 checks {time.perf_counter() - t_phase:.1f} s")
+
+    # (a) pbrl_bc5
+    t0 = time.perf_counter()
+    reset_counts()
+    cfg = bc5.campaign_config(snr_lo=min(P18_BC5_SNRS),
+                              snr_hi=max(P18_BC5_SNRS), device=dev)
+    want, got = phase18_sweeps("a", {k: (d, cfg) for k, d in a.items()},
+                               P18_BC5_SNRS, book,
+                               record["pbrl_bc5"]["curves"])
+    only_k1("(a)", read_counts(), want)
+    phase18_compacted("a", checks, {k: v[1] for k, v in got.items()})
+    print(f"  (a) pbrl_bc5 cut: {P18_BC5_SNRS} dB of 2.6-4.0; waves {wave}, "
+          f"budget {budget}, 100 errors, frame cap 2e7; K1 launches {want}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    k1 = want
+
+    # (b) pbrl_lift_floor
+    t0 = time.perf_counter()
+    reset_counts()
+    want, kinds = phase18_lift(dev, root, book,
+                               record["pbrl_lift_floor"]["results"])
+    only_k1("(b)", read_counts(), want)
+    phase18_compacted("b", checks, kinds)
+    print(f"  (b) pbrl_lift_floor cut: {P18_LIFT_SNRS} dB of 2.8-4.0; K1 "
+          f"launches {want}; {time.perf_counter() - t0:.1f} s")
+    k1 += want
+
+    # (c) pbrl_precode, every precoded K1 launch checked for zeros at the
+    # punctured positions as it reaches the kernel (bf16)
+    t0 = time.perf_counter()
+    reset_counts()
+    punct = c["precoded-bc4-T10"][1]
+    lo, hi = punct[0], punct[-1] + 1
+    seen = dict(calls=0, nonzero=torch.zeros((), dtype=torch.int64,
+                                             device=dev))
+    real = fused._launch
+
+    def spy(flooding, llr, *args):
+        if llr.shape[1] == c["precoded-bc4-T10"][0].code.n:
+            seen["calls"] += 1
+            seen["nonzero"] += (llr[:, lo:hi] != 0).sum()
+        return real(flooding, llr, *args)
+
+    arms = {k: (d, pc.campaign_config(
+        p, P18_OMS_CAP if "oms" in k else 2 * 10 ** 7,
+        snr_lo=min(P18_PRECODE_SNRS), snr_hi=max(P18_PRECODE_SNRS),
+        device=dev)) for k, (d, p) in c.items()}
+    fused._launch = spy
+    try:
+        w1, got = phase18_sweeps(
+            "c", {k: v for k, v in arms.items() if "oms" not in k},
+            P18_PRECODE_SNRS, book, record["pbrl_precode"]["curves"])
+        w2, oms = phase18_sweeps(
+            "c", {k: v for k, v in arms.items() if "oms" in k},
+            P18_PRECODE_SNRS, book, record["pbrl_precode"]["curves"],
+            why=f"capped at {P18_OMS_CAP:,} frames")
+    finally:
+        fused._launch = real
+    only_k1("(c)", read_counts(), w1 + w2)
+    phase18_compacted("c", checks, {k: v[1] for k, v in {**got,
+                                                         **oms}.items()})
+    pre = launches_of(got["precoded-bc4-T10"][1]) + w2
+    nonzero = int(seen["nonzero"])
+    print(f"  (c) pbrl_precode cut: {P18_PRECODE_SNRS} dB of 2.6-4.0, the "
+          f"OMS arm capped at {P18_OMS_CAP:,} frames (the program's 2e7); "
+          f"K1 launches {w1 + w2}, of which {seen['calls']} on the precoded "
+          f"code ({pre} its waves account for), {nonzero} nonzero LLRs at "
+          f"the {hi - lo} punctured positions there; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if nonzero or seen["calls"] != pre:
+        raise AssertionError("a punctured LLR reached K1 nonzero, or a "
+                             "precoded launch went uncounted")
+    k1 += w1 + w2
+
+    phase18_spectrum(card, spectrum, root)
+    secs = time.perf_counter() - t_phase
+    print(f"  {book.tested} points Fisher-tested against the JAX records; "
+          f"K1 launches in phase 18 {k1}, no K4, K5 or K6; phase "
+          f"{secs:.1f} s (limit {P18_LIMIT} s)")
+    if book.failed:
+        raise AssertionError(f"points off the JAX records (p < {P15_P}): "
+                             f"{book.failed}")
+    if secs > P18_LIMIT:
+        raise AssertionError(f"phase 18 took {secs:.1f} s, over "
+                             f"{P18_LIMIT} s")
+    return dict(K1=k1, k1_err=err)
+
+
+def run(design, de, spectrum):
+    """Phases 1-18; ``design``, ``de`` and ``spectrum`` are the result
+    handles of :func:`bench_design`, :func:`de_data` and
+    :func:`spectrum_data` running in a worker process."""
     import ldpc_tpu_torch as lt
     from ldpc_tpu_torch.cli.bench import device_line
     from ldpc_tpu_torch.decode import _build, two_checkpoint_stages
@@ -3353,6 +3662,8 @@ def run(design, de):
     p16 = phase16(dev, card)
     torch.cuda.empty_cache()
     p17 = phase17(dev, card)
+    torch.cuda.empty_cache()
+    p18 = phase18(dev, card, spectrum)
 
     print(f"[script] {time.perf_counter() - T_START:.1f} s from the start")
     print(card)
@@ -3363,9 +3674,9 @@ def run(design, de):
         "source": "ldpc_tpu_torch/csrc/fused_layered.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
         "launches": (launches + p12_launches + p13["K1"] + p14["K1"] +
-                     p15["K1"] + p16["K1"] + p17["K1"]),
+                     p15["K1"] + p16["K1"] + p17["K1"] + p18["K1"]),
         "max_abs_err": max(max_err, p12_err, p14["k1_err"], p15["k1_err"],
-                           p16["k1_err"], p17["k1_err"]),
+                           p16["k1_err"], p17["k1_err"], p18["k1_err"]),
         "ms": times[256][0],
         "plain_ms": times[256][1],
         "bound_ms": k1_bound[0],
@@ -3404,13 +3715,14 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "run only on an NVIDIA GPU")
-    # phase 12's design and phase 13's DE curves are host numpy for a
-    # minute or two each: they run in a worker process from the start,
-    # beside phases 1-11 (leaving the pool terminates the worker)
+    # phase 12's design, phase 13's DE curves and phase 18's trapping-set
+    # spectra are host numpy for minutes together: they run one after
+    # another in a worker process from the start, beside phases 1-11
+    # (leaving the pool terminates the worker)
     base = np.random.default_rng(0).integers(0, 256, size=(5, 37))
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         run(pool.apply_async(bench_design, (base,)),
-            pool.apply_async(de_data))
+            pool.apply_async(de_data), pool.apply_async(spectrum_data))
 
 
 if __name__ == "__main__":

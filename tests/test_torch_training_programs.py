@@ -38,10 +38,15 @@ import numpy as np
 import pytest
 import torch
 
+import experiments.floor_is as jax_fi
+import experiments.pbrl_bc5 as jax_bc5
+import experiments.pbrl_lift_floor as jax_lf
+import experiments.pbrl_precode as jax_pc
 import experiments.rate_specific as jax_rs
 import experiments.rate_specific_deep as jax_rsd
 import experiments.train_wrcq as jax_tw
 import experiments.train_wrcq_qc9472 as jax_tq
+import experiments.trapping_spectrum as jax_ts
 import ldpc_tpu
 import ldpc_tpu.sim
 import ldpc_tpu.train
@@ -50,11 +55,13 @@ import ldpc_tpu.utils.checkpoint
 import ldpc_tpu_torch as lt
 from ldpc_tpu.decode.engine import decode_batch_layered as jax_layered
 from ldpc_tpu.sim import SimulationResult as JaxSimulationResult
-from ldpc_tpu_torch.cli import deep_fer
+from ldpc_tpu_torch.cli import deep_fer, floor_is, pbrl_bc5
+from ldpc_tpu_torch.cli import pbrl_lift_floor, pbrl_precode
 from ldpc_tpu_torch.cli import rate_specific as rs
 from ldpc_tpu_torch.cli import rate_specific_deep as rsd
 from ldpc_tpu_torch.cli import train_wrcq as tw
 from ldpc_tpu_torch.cli import train_wrcq_qc9472 as tq
+from ldpc_tpu_torch.cli import trapping_spectrum
 from ldpc_tpu_torch.sim import SimulationResult
 from torch_port_helpers import (assert_same_config, assert_same_decoder,
                                 carry_weights, channel_llr,
@@ -227,10 +234,24 @@ def _options(module):
             for a in node.args if isinstance(a, ast.Constant)}
 
 
-@pytest.mark.parametrize("name", list(TWINS))
+# (twin, JAX program) of the PBRL floor programs, whose other tests are in
+# tests/test_torch_floor_programs.py
+FLOOR_TWINS = {"pbrl_bc5": (pbrl_bc5, jax_bc5),
+               "pbrl_lift_floor": (pbrl_lift_floor, jax_lf),
+               "pbrl_precode": (pbrl_precode, jax_pc),
+               "floor_is": (floor_is, jax_fi),
+               "trapping_spectrum": (trapping_spectrum, jax_ts)}
+
+
+@pytest.mark.parametrize("name", list(TWINS) + list(FLOOR_TWINS))
 def test_command_line_is_the_jax_programs_plus_device(name):
-    assert _options(TWINS[name]) == _options(PROGRAMS[name][0]) | {
-        "--device"}
+    """Each twin's options are its program's plus ``--device``; a program
+    with no command line (``trapping_spectrum``, host numpy) has a twin
+    with none."""
+    twin, prog = (FLOOR_TWINS[name] if name in FLOOR_TWINS
+                  else (TWINS[name], PROGRAMS[name][0]))
+    want = _options(prog)
+    assert _options(twin) == (want | {"--device"} if want else set())
 
 
 @pytest.mark.parametrize("name", list(PROGRAMS))
