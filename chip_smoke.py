@@ -69,13 +69,13 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    layered T=6: W-OMS-RCQ, sharing type 2, on QC(9472, 8192)) rebuilt from
    their recipes with the port's initial weights, trained through
    ``PosteriorJointTrainer`` with the configurations of
-   ``experiments/accuracy_bc3.py`` (B=128, 4 steps, one ``train_epoch``)
+   ``experiments/accuracy_bc3.py`` (B=128, 3 steps, one ``train_epoch``)
    and ``experiments/train_layered_short.py`` (cosine with 8 warmup
    updates: 4 steps, the first at learning rate 0, so its weights stay);
    each step's loss, CUDA-event time and peak memory, the CUDA launches of
    one layered step (torch.profiler); one B=16 batch stepped twice on the card and
    on a CPU copy of the flooding decoder, held to float tolerance; the
-   gradient analyzer (``torch.func.vmap``) on 32 frames at 6.5 dB, four
+   gradient analyzer (``torch.func.vmap``) on 16 frames at 6.5 dB, four
    of its norms recomputed one frame at a time; no K1, K4, K5 or K6
    launch while training (the training route is the engines'); then each
    trained decoder's weights in its fused bf16 twin, K4 (flooding) and K1
@@ -163,7 +163,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    and 6.5 dB ({2, 6}, K1), each point's frames/s and wave kinds printed
    and the launches checked against the waves (2 a compacted wave, 4 a
    fallback); (c) ``accuracy_bc3``: the full dev sweep (K4), ``train_pair``
-   cut to one epoch of 256 frames (no launch) and the waterfall on the
+   cut to one epoch of 128 frames (no launch) and the waterfall on the
    JAX run's 2-4-6@1.3 at 16,384 frames a point (K4, once a wave); (d)
    ``fer_parity`` at 16,384 frames a point (the general engine, no
    launch). Every requested decoder must have its curve, and every point
@@ -186,7 +186,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    select and their rates; (c) ``bench_dde``: ``train`` cut to 2 steps
    (no launch), then ``deep`` on the zoo's ``worcq_bc3_layered_t6_dde``
    and the bench decoder (32768-frame waves, budget 4096, 100 errors;
-   RCQ-dde-L6 at 6.4-6.6 dB, the last capped at 2e7 frames, W-ORCQ-dde-L6
+   RCQ-dde-L6 at 6.4-6.6 dB, the last capped at 2^23 frames, W-ORCQ-dde-L6
    at 6.4 and 6.5 dB), each point's frames/s and wave kinds; (d)
    ``train_layered_short``: the four arms cut to 2 steps each (no launch),
    the FER table at 65,536 frames a point, RCQ-L6 and RCQ-L5
@@ -202,7 +202,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    the untrained at 3.0 and 3.5 dB; (b) ``rate_specific`` whole (the PBRL
    family at k=96, three rates; no launch), MS Fisher-tested at all 15
    points; (c) ``train_wrcq_qc9472`` at lift 256 (the QC engine, no
-   launch), training cut to 2 steps an epoch, the simulation to 8,192
+   launch), training cut to 2 steps an epoch, the simulation to 4,096
    frames a point (the program's 16,384), float-MS at 6.0 dB
    Fisher-tested; (d) ``rate_specific_deep`` at lift
    86: K1 held to its plain version bit for bit at stage 1 (T=3,
@@ -245,6 +245,49 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    2 a compacted wave and 4 a fallback; every point whose JAX record has
    at least 20 errors and 20 successes passes Fisher's exact test at
    p >= 1e-3; no K4, K5 or K6 launch; the phase must end within 150 s.
+19. the bench-code design studies' twins (``ldpc_tpu_torch/cli/``) at the
+   programs' codes, widths, waves, budgets and seeds (only SNR points and
+   frame caps cut, each cut printed), only K1 launching, held first to
+   its plain version bit for bit at every shape the studies launch, each
+   timed against its bound with K1's registers, shared memory,
+   check-state placement and CTAs per SM: ``ladder_bc4``'s 3-6-9@1.0
+   whole (B=16384) and 2-4-6@1.3 at stage 1 (T=2, B=32768), stage 2
+   (B=2048) and the fallback's whole decode (B=32768);
+   ``bc4_refine``'s mixed-gamma bc=4 ladder (2.2, 2.2, 1.5) and
+   ``quantizer_count``'s two-pair ``rcq-q2``, lean, at stage 1 (T=3,
+   B=32768), stage 2 (B=4096) and the fallback (B=32768), their bc3 arm
+   (the bench decoder) at stage 2 and the fallback; ``quantizer_count``'s
+   ``p2`` and ``p3`` on the precoded rate-1/3 PBRL code at lift 43
+   (49x73 base, n = 3139, base column 0's
+   43 bits punctured) at stage 1 (T=5, B=98304), stage 2 (T=10, B=4096)
+   and the fallback's whole decode (B=98304); ``dde_ladders``' bc4_dde
+   whole at B=16384, full and lean. Then the two-pair tables on the card
+   (row t of K1's [T, 2] and [T, L] tables is pair ``phase_schedule(T,
+   2)[t]``, T=6 and 10), and K1 on each bc's dde and dde_cn_only decoders
+   (one CN ladder, V2C ladders apart), full and lean: equal bits, success
+   and iterations. (a) ``ladder_bc4`` whole (six ladders at 6.4 dB,
+   131,072 frames each; the selected one at 6.5 and 6.6 dB, {2, 6},
+   32768-frame waves, budget 2048, capped at 2^23 frames); (b)
+   ``bc4_refine``'s deep phase, arms bc4 and bc3 at 6.0-6.6 dB ({3, 6},
+   budget 4096, 100 errors, capped at 2^23 frames); (c)
+   ``quantizer_count``'s deep phase (rcq-q2 from the committed design,
+   rcq-q3) at 6.0-6.6 dB (50 errors, capped at 2^23), rcq-q3 (the same
+   decoder and seeded stream as (b)'s bc3, with an error target of 50,
+   not 100) equal to bc3 wave by wave over the waves both ran at each
+   point, and deep13's p2 at 1.4-2.4 dB ({5,
+   10}, 98304-frame waves, budget 4096) and p3 at 2.0 dB capped at 2^21
+   frames (printed: no record), every K1 launch on the lift-43 code
+   checked for zeros at the punctured positions; (d) ``dde_ladders`` at
+   6.4 dB (262,144 frames an arm, ten arms), its four designer calls held
+   to the program's and answered by phase 12 (a)'s bc=3 design and the
+   JAX package's results for the others (host numpy for minutes:
+   ``tests/jax_reference_dde_ladders.py``), the dde and dde_cn_only arms
+   of each bc with equal frame errors. Points as in phase 15 (Fisher p >=
+   1e-3 where the record has at least 20 errors and 20 successes):
+   ``ladder_bc4``'s dev ladders (its deep points when the twin selects
+   the record's ladder), every point of (b), (c)'s deep and p2, and
+   ``dde_ladders``' hand arms; no K4, K5 or K6 launch; the phase must end
+   within 240 s.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -360,8 +403,10 @@ PB_SIM = dict(snr_range=(PB_SNR, PB_SNR), snr_step=0.25, max_frames=65536,
 PB_REF_FER, PB_REF_FRAMES = 54307 / 65536, 65536
 # phase 11: training at full width on the zoo's two operating recipes
 # (zoo/<entry>/spec.json), with fresh weights from the port's generator.
-# Flooding: experiments/accuracy_bc3.py:96-103's configuration, 4 steps
-# (a depth cut: the script's time limit holds phases 1-18).
+# Flooding: experiments/accuracy_bc3.py:96-103's configuration, 3 steps
+# (a depth cut: the script's time limit holds phases 1-19; 4 until the
+# bench-code design studies' phase 19 took the time). The analyzer's
+# batch was 32 frames until then, 16 now.
 # Layered: experiments/train_layered_short.py:85-90's, 4 steps; its
 # decay_steps is the run the zoo entry came from (32 epochs x 2048 // 128
 # batches = 512; the 4 steps taken here are inside the 8-step warmup)
@@ -369,8 +414,8 @@ TR_CFG = dict(batch_size=128, learning_rate=2e-3, snr_range=(5.5, 7.5),
               early_stop_accuracy=2.0, seed=0)
 TR_LAYERED_CFG = dict(TR_CFG, lr_schedule="cosine", warmup_steps=8,
                       decay_steps=512)
-TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 4, 4, 16
-TR_ANALYZE = dict(num_samples=32, snr_db=6.5)
+TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 3, 4, 16
+TR_ANALYZE = dict(num_samples=16, snr_db=6.5)
 # card vs CPU, one step: the loss (a mean) and the accuracy to a few
 # roundings, the gradient norm to the gradients' tolerance (the backward
 # of a gather adds with atomics on the card), the Adam-updated weights
@@ -411,17 +456,19 @@ P14_REPS, P14_FRAMES = 10, 64
 # phase 15: the FER campaign programs' twins (ldpc_tpu_torch/cli/) at their
 # full width (lift 256, their waves, budgets and error targets); only SNR
 # points and frame caps are cut. The deep-FER points (decoder, SNRs); the
-# frame cap is deep_fer.py's 5e7 raised to 6e7, above the JAX record's
-# 54,034,432 frames for RCQ-bc3-L6 at 6.6 dB
+# frame cap is deep_fer.py's 5e7 cut to 2^24: it binds only at RCQ-bc3-L6's
+# 6.6 dB, where the JAX record's FER 1.85e-6 (100 errors in 54,034,432
+# frames) expects about 31 errors (the cap was 6e7, ≈ 35 s more of waves)
 P15_DEEP = (("RCQ-bc3-L6", (6.4, 6.5, 6.6)), ("RCQ-bc4-L6", (6.5,)),
             ("float-MS-L6", (6.4,)), ("W-OMS-RCQ-bc3-trained", (6.4, 6.5)))
-P15_L6_SNRS, P15_CAP = (6.4, 6.5), 6 * 10 ** 7
+P15_L6_SNRS, P15_CAP = (6.4, 6.5), 2 ** 24
 P15_LIFT, P15_WAVE = 256, 32768
-# accuracy_bc3: the full dev sweep, train_pair cut to one epoch of 256
-# frames (2 steps a decoder), the waterfall on the JAX run's ladder;
-# fer_parity and the waterfall at 16,384 frames a point
+# accuracy_bc3: the full dev sweep, train_pair cut to one epoch of 128
+# frames (one step a decoder; 2 until phase 19 took the time: the trained
+# decoders are printed, not tested), the waterfall on the JAX run's
+# ladder; fer_parity and the waterfall at 16,384 frames a point
 P15_LADDER, P15_TRAIN, P15_FRAMES = "2-4-6@1.3", dict(epochs=1,
-                                                      num_samples=256), 16384
+                                                      num_samples=128), 16384
 # a point is held to the JAX record's by the two-sided p of Fisher's exact
 # test where the record has at least P15_MIN errors and P15_MIN successes.
 # K1 and K4 are first held to their plain versions at the campaign's
@@ -434,13 +481,14 @@ P15_WAVE_CHECK = ("RCQ-bc3-L6", "W-OMS-RCQ-bc3-trained")
 # (ldpc_tpu_torch/cli/) at their full width: lift 256, the programs'
 # batches, budgets and waves; only SNR points, frame caps and training
 # steps are cut. bench_dde's deep points (decoder, SNRs, frame cap): its
-# 5e7 cap cut to 2e7 at 6.6 dB (the JAX record's FER 1.56e-6 expects
-# about 31 errors there); every training cut to one epoch of 256 frames
-# (2 steps). K1 is held to its plain version first at every (decoder,
+# 5e7 cap cut to 2^23 at 6.6 dB (the JAX record's FER 1.56e-6 expects
+# about 13 errors there; the cap was 2e7 until the bench-code design
+# studies' phase 19 took the time); every training cut to one epoch of 256
+# frames (2 steps). K1 is held to its plain version first at every (decoder,
 # iterations, batch) the part launches: each stage 1 and whole decode at
 # the part's batch, each stage 2 at its budget
 P16_DEEP = (("RCQ-dde-L6", (6.4, 6.5), 5 * 10 ** 7),
-            ("RCQ-dde-L6", (6.6,), 2 * 10 ** 7),
+            ("RCQ-dde-L6", (6.6,), 2 ** 23),
             ("W-ORCQ-dde-L6", (6.4, 6.5), 5 * 10 ** 7))
 P16_TRAIN, P16_CHECK_SNR = dict(epochs=1, num_samples=256), 6.5
 # train_layered_short's FER table: the program's frames a point
@@ -453,7 +501,9 @@ P16_EE_TESTED = ("survivors_plain_t1=2_B8192",
 # lift 256, lift 86), batches, waves and budgets; only SNR points, frame
 # caps, epochs and num_samples are cut, each cut printed. train_wrcq and
 # rate_specific run whole (the programs' defaults); train_wrcq_qc9472's
-# simulation cut to 8,192 frames a point (the program's 16,384), its
+# simulation cut to 4,096 frames a point (the program's 16,384; 8,192
+# until phase 19 took the time: the 6.0 dB point stops at its errors
+# first, the cut shortens the 6.5 and 7.0 dB points), its
 # training cut to 2 steps an epoch (256 of the
 # program's 1024 frames) for at most 2 epochs (the trainer's accuracy
 # early stop at 0.99 ends it after the first: the JAX record's
@@ -462,7 +512,7 @@ P16_EE_TESTED = ("survivors_plain_t1=2_B8192",
 # program's 2e7-frame cap and 100 errors. K1 is first held to its plain
 # version at every (decoder, iterations, batch) the campaign launches (and
 # W-NMS-RCQ on its initial tables), on LLRs drawn at P17_CHECK_SNR
-P17_TQ, P17_TQ_SAMPLES = dict(lift=256, frames=8192, epochs=2), 256
+P17_TQ, P17_TQ_SAMPLES = dict(lift=256, frames=4096, epochs=2), 256
 P17_RSD_EPOCHS, P17_RSD_SAMPLES = 1, 128
 P17_DEEP = (("OMS-6bit", (2.6, 2.8)), ("W-NMS-RCQ-4bit-trained", (3.2,)),
             ("W-OMS-RCQ-4bit-trained", (3.2,)))
@@ -481,6 +531,33 @@ P18_BC5_SNRS, P18_LIFT_SNRS, P18_PRECODE_SNRS = (2.6,), (2.8, 3.2), (2.6,)
 P18_OMS_CAP, P18_CHECK_SNR, P18_LIMIT = 2 ** 22, 2.8, 150
 # the three programs' wave and survivor budget
 P18_WAVE, P18_BUDGET = 32768, 4096
+# phase 19: the bench-code design studies' twins (ldpc_tpu_torch/cli/) at
+# the programs' codes, widths, waves, budgets and seeds; only SNR points
+# and frame caps are cut, each cut printed: (a) ladder_bc4 whole, its 6.6
+# dB deep point capped at P19_CAP frames (the program's 2e7); (b)
+# bc4_refine's deep phase at 6.0-6.6 dB, (c) quantizer_count's deep phase
+# at 6.0-6.6 dB, each capped at P19_CAP frames (the programs' 2e8 and
+# 1e9), deep13's p2 at 1.4-2.4 dB and p3 at P19_P3's point and cap
+# (printed only: no record); (d) dde_ladders' arms at P19_DDE_SNRS (6.5
+# dB cut) at the program's 262,144 frames. K1 is first held to its plain
+# version at the P19 checks' shapes on LLRs drawn at the part's check SNR
+P19_CAP, P19_DDE_SNRS, P19_LIMIT = 2 ** 23, (6.4,), 240
+P19_P3 = (2.0, 2 ** 21)
+P19_CHECK_SNR, P19_CHECK13_SNR = 6.4, 2.0
+# dde_ladders' designer calls other than the bc=3 design (phase 12 (a)'s
+# call, held to DESIGN_QP / DESIGN_VQP): minutes of host numpy each, so the
+# phase puts in their place the JAX package's results for the same calls,
+# made once on a CPU with ldpc_tpu.design by
+# ``JAX_PLATFORMS=cpu python tests/jax_reference_dde_ladders.py`` (its
+# ``--port`` option makes the same calls through the port's design tools
+# and compares: equal in every ladder and threshold). Each is (CN ladder,
+# V2C ladder, DE threshold in dB); both refines return their input
+# ladders, at a threshold of their own
+P19_DESIGN_BC4 = (((6.9657, 1.3), (4.8879, 1.3), (8.4285, 1.3)),
+                  ((40.9447, 1.0), (31.6042, 1.0), (33.1652, 1.0)),
+                  6.112500000000001)
+P19_REFINED = {3: (DESIGN_QP, DESIGN_VQP, 6.112500000000001),
+               4: P19_DESIGN_BC4}
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -3123,6 +3200,62 @@ def launches_of(kinds):
                for k in kinds)
 
 
+class SimWatch:
+    """``lt.simulate_single_snr`` watched while the context is open:
+    ``calls`` holds each call's (decoder, SNR, config, wave kinds,
+    seconds, result, each wave's counts)."""
+
+    def __enter__(self):
+        import ldpc_tpu_torch as lt
+        from ldpc_tpu_torch.sim.montecarlo import _build_wave
+        self.calls, self.real = [], lt.simulate_single_snr
+
+        def watched(dec, snr, cfg, *args, **kw):
+            wave, counts = _build_wave(dec, cfg), []
+
+            def one(gen, snr_t):
+                counts.append(tuple(wave(gen, snr_t)))
+                return counts[-1]
+
+            t0 = time.perf_counter()
+            out = self.real(dec, snr, cfg, *args, wave_fn=one, **kw)
+            self.calls.append((dec, snr, cfg, dict(wave.kinds),
+                               time.perf_counter() - t0, out, counts))
+            return out
+
+        lt.simulate_single_snr = watched
+        return self
+
+    def __exit__(self, *exc):
+        import ldpc_tpu_torch as lt
+        lt.simulate_single_snr = self.real
+
+    def launches(self):
+        """K1 launches the waves account for: 1 a plain wave, 2 a
+        compacted one, 4 a fallback."""
+        kinds = [c[3] for c in self.calls]
+        return sum(k.get("plain", 0) for k in kinds) + launches_of(kinds)
+
+
+def book_point(book, tag, name, call, ref=None, why=None):
+    """One watched point beside the record's (errors, frames) ``ref``,
+    Fisher-tested unless ``why`` says why not; without ``ref``, printed
+    with ``why``."""
+    from ldpc_tpu_torch.sim import SimulationResult
+    _, snr, _, kinds, secs, (fer, ber, it, nf, ne) = call[:6]
+    extra = (f", {nf / secs:.1f} frames/s ({secs:.2f} s), avg iterations "
+             f"{it:.4f}, waves {kinds}")
+    if ref is None:
+        print(f"  ({tag}) {name} @ {snr:.2f} dB: {ne}/{nf} (FER "
+              f"{ne / nf:.4g}), no JAX record ({why}){extra}  [{book.card}]")
+        return
+    r = SimulationResult(name, [snr])
+    r.add_result(0, fer, ber, it, secs, nf, ne)
+    book.curves(tag, {name: r}, {name: dict(
+        snr_values=[snr], total_errors=[ref[0]], total_frames=[ref[1]])},
+        test=why is None, extra=lambda *_: extra, why=why)
+
+
 def phase18_checks(dev, card, decs):
     """K1 against its plain version at every (decoder, iterations, batch)
     phase 18's campaigns launch (``decs``: {name: (decoder, t1, budget,
@@ -3190,44 +3323,19 @@ def phase18_lift(dev, root, book, record):
     each point]}."""
     import tempfile
 
-    import ldpc_tpu_torch as lt
     from ldpc_tpu_torch.cli import pbrl_lift_floor as lf
-    from ldpc_tpu_torch.sim import SimulationResult
-    from ldpc_tpu_torch.sim.montecarlo import _build_wave
 
-    real, seen = lt.simulate_single_snr, []
-
-    def watched(dec, snr, cfg, *args, **kw):
-        wave = _build_wave(dec, cfg)
-        t0 = time.perf_counter()
-        out = real(dec, snr, cfg, *args, wave_fn=wave, **kw)
-        seen.append((dict(wave.kinds), time.perf_counter() - t0, out))
-        return out
-
-    lt.simulate_single_snr = watched
-    try:
-        with tempfile.TemporaryDirectory(dir=root) as tmp:
-            rep = lf.run(snrs=P18_LIFT_SNRS, out_path=os.path.join(
-                tmp, "lift.json"), verbose=False, device=dev)
-    finally:
-        lt.simulate_single_snr = real
-    want, kinds = 0, {}
-    for key, (k, secs, (fer, ber, it, nf, ne)) in zip(rep["results"], seen,
-                                                      strict=True):
-        name, snr = key.split("@")
-        snr = float(snr)
-        want += launches_of([k])
-        kinds.setdefault(name, []).append(k)
-        r = SimulationResult(name, [snr])
-        r.add_result(0, fer, ber, it, secs, nf, ne)
+    with SimWatch() as w, tempfile.TemporaryDirectory(dir=root) as tmp:
+        rep = lf.run(snrs=P18_LIFT_SNRS, out_path=os.path.join(
+            tmp, "lift.json"), verbose=False, device=dev)
+    kinds = {}
+    for key, call in zip(rep["results"], w.calls, strict=True):
+        name = key.split("@")[0]
+        kinds.setdefault(name, []).append(call[3])
         jp = record[key]
-        je = int(round(jp["fer"] * jp["frames"]))
-        book.curves("b", {name: r}, {name: dict(
-            snr_values=[snr], total_errors=[je],
-            total_frames=[jp["frames"]])}, extra=lambda *_, nf=nf, secs=secs,
-            it=it, k=k: (f", {nf / secs:.1f} frames/s ({secs:.2f} s), avg "
-                         f"iterations {it:.4f}, waves {k}"))
-    return want, kinds
+        book_point(book, "b", name, call,
+                   (int(round(jp["fer"] * jp["frames"])), jp["frames"]))
+    return w.launches(), kinds
 
 
 def phase18_spectrum(card, spectrum, root):
@@ -3377,8 +3485,439 @@ def phase18(dev, card, spectrum=None):
     return dict(K1=k1, k1_err=err)
 
 
+def phase19_checks(dev, card, dde):
+    """K1 against its plain version at the shapes the studies launch,
+    bit for bit in bf16 (:func:`phase16_check`), each timed against its
+    bound, and each decoder's K1 facts: ladder_bc4's 3-6-9@1.0 whole at
+    B=16384 and 2-4-6@1.3 at stage 1 (T=2, B=32768), stage 2 (B=2048) and
+    the fallback's whole decode (B=32768); bc4_refine's polished bc4 and
+    quantizer_count's rcq-q2, lean, at stage 1 (T=3, B=32768), stage 2
+    (B=4096) and the fallback (B=32768), and their bc3 / rcq-q3 at stage 2
+    and the fallback; p2 and p3 at lift 43 on LLRs
+    punctured as the simulator's mask does, at stage 1 (T=5, B=98304),
+    stage 2 (B=4096) and the fallback's whole decode (B=98304);
+    dde_ladders' bc4_dde whole at B=16384, full and lean. Returns (max
+    |d posterior|, {name: decoder})."""
+    from ldpc_tpu_torch.cli import bc4_refine as br
+    from ldpc_tpu_torch.cli import ladder_bc4 as lb
+    from ldpc_tpu_torch.cli import quantizer_count as qcn
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    specs = [
+        ("3-6-9@1.0", lb.make(lb.LADDERS["3-6-9@1.0"], device=dev),
+         ((6, 16384, False),), None, P19_CHECK_SNR),
+        ("2-4-6@1.3", lb.make(lb.LADDERS["2-4-6@1.3"], device=dev),
+         ((2, 32768, False), (6, 2048, False), (6, 32768, False)), None,
+         P19_CHECK_SNR),
+        ("bc4 polished", br._mk("bc4", dev)[0],
+         ((3, 32768, True), (6, 4096, True), (6, 32768, True)), None,
+         P19_CHECK_SNR),
+        ("rcq-q2", qcn._mk("rcq-q2", dev)[0],
+         ((3, 32768, True), (6, 4096, True), (6, 32768, True)), None,
+         P19_CHECK_SNR),
+        # bc4_refine's bc3 and quantizer_count's rcq-q3: the bench decoder,
+        # whose stage 1 (T=3, B=32768, lean) phase 16 (a) holds
+        ("bc3", br._mk("bc3", dev)[0], ((6, 4096, True), (6, 32768, True)),
+         None, P19_CHECK_SNR),
+        ("bc4_dde", dde["bc4_dde"], ((6, 16384, False), (6, 16384, True)),
+         None, P19_CHECK_SNR)]
+    for arm in ("p2", "p3"):
+        dec, punct = qcn._mk13(arm, dev)
+        specs.append((arm, dec, ((5, 98304, False), (10, 4096, False),
+                                 (10, 98304, False)), punct,
+                      P19_CHECK13_SNR))
+    err = 0.0
+    for name, dec, shapes, punct, snr in specs:
+        err = max(err, phase16_checks(dev, card, [
+            (name, dec, T_, B_, lean) for T_, B_, lean in shapes], gen, snr,
+            punct)[0])
+        print(k1_facts(dec, card))
+        torch.cuda.empty_cache()
+    return err, {name: dec for name, dec, *_ in specs}
+
+
+def phase19_tables(card, decs):
+    """The two-pair decoders' (``decs``: {name: (decoder, ladder)})
+    per-iteration tables on the card: row t of the [T, 2] (C, gamma) and
+    [T, L] threshold tables K1 indexes is pair ``phase_schedule(T, 2)[t]``
+    (the first pair for t < T // 3)."""
+    from ldpc_tpu_torch.decode import engine
+    from ldpc_tpu_torch.quantizer import phase_schedule, power_thresholds
+
+    for name, (dec, ladder) in decs.items():
+        T_, dev = dec.max_iterations, dec.device
+        sched = phase_schedule(T_, 2)
+        bc = int(np.log2(dec.spec.q_levels)) + 1
+        tabs = engine._tables(dec.weights, dec.spec, T_, dec.qc.num_blocks,
+                              dev)
+        qp = torch.from_numpy(np.asarray(ladder, np.float32)[sched])
+        thr = torch.from_numpy(np.stack([power_thresholds(bc, c, g)
+                                         for c, g in ladder])[sched])
+        ok = (torch.equal(tabs["qp"].cpu(), qp) and
+              torch.equal(tabs["thr"].cpu(), thr))
+        print(f"  {name}: phase_schedule({T_}, 2) = {sched.tolist()}; K1's "
+              f"tables qp {tuple(tabs['qp'].shape)} and thr "
+              f"{tuple(tabs['thr'].shape)} on the card are the pairs' rows "
+              f"in that order: {ok}  [{card}]")
+        if not ok:
+            raise AssertionError(f"{name}: two-pair tables")
+
+
+def phase19_neutral(dev, card, dde):
+    """K1 on dde_ladders' ``bc{3,4}_dde`` and ``_dde_cn_only`` (one CN
+    ladder, V2C ladders apart), full and lean, on one B=16384 wave at
+    P19_CHECK_SNR (comparison launches, not counted): equal bits, success
+    and iterations, since the layered schedule's V2C quantizer touches
+    only the final posterior and keeps its signs."""
+    import ldpc_tpu_torch as lt
+
+    gen = torch.Generator(device=dev).manual_seed(191)
+    for bc in (3, 4):
+        a, b = dde[f"bc{bc}_dde"], dde[f"bc{bc}_dde_cn_only"]
+        x = lt.awgn_llr(gen, torch.zeros((16384, a.code.n), device=dev),
+                        P19_CHECK_SNR).to(torch.bfloat16)
+        outs = [uncounted(lambda d=d, lean=lean: kernel_on(x, d, 6, lean))
+                for d in (a, b) for lean in (False, True)]
+        torch.cuda.synchronize()
+        ref = outs[0]
+        same = all(torch.equal(o.bits.to(torch.int8),
+                               ref.bits.to(torch.int8)) and
+                   torch.equal(o.success, ref.success) and
+                   torch.equal(o.iterations, ref.iterations)
+                   for o in outs[1:])
+        differ = not torch.equal(outs[0].posterior.view(torch.int16),
+                                 outs[2].posterior.view(torch.int16))
+        va, vb = (d.spec.v2c_qparams[-1].tolist() for d in (a, b))
+        print(f"  bc{bc}_dde and bc{bc}_dde_cn_only (V2C {va} and {vb} at "
+              f"the last iteration), "
+              f"full and lean, B=16384 at {P19_CHECK_SNR} dB: bits, success "
+              f"and iterations equal {same}, posteriors differ {differ}, "
+              f"success {ref.success.float().mean().item():.4f}  [{card}]")
+        if not same:
+            raise AssertionError(f"bc={bc}: the V2C ladder changed a decode")
+        del x, outs, ref
+
+
+def phase19_ladder(dev, card, tmp, book, record):
+    """(a): ``ladder_bc4.run`` whole, the deep points capped at P19_CAP
+    frames; the dev ladders Fisher-tested, the deep points where the twin
+    selects the record's ladder. Returns K1's launches."""
+    from ldpc_tpu_torch.cli import ladder_bc4 as lb
+
+    t0 = time.perf_counter()
+    reset_counts()
+    with SimWatch() as w:
+        rep = lb.run(deep_frames=P19_CAP, out_path=os.path.join(
+            tmp, "ladder_bc4.json"), verbose=False, device=dev)
+    torch.cuda.synchronize()
+    k1 = w.launches()
+    only_k1("(a)", read_counts(), k1)
+    calls, sel = w.calls, rep["selected"]
+    if len(calls) != 8 or [c[1] for c in calls[6:]] != [6.5, 6.6] or \
+            calls[6][2] != lb.deep_config(P19_CAP, dev):
+        raise AssertionError(f"(a) calls {[c[1] for c in calls]}")
+    print(f"  (a) ladder_bc4 cut: deep frame cap {P19_CAP:,} (the "
+          f"program's 20,000,000; it binds at 6.6 dB, where the record "
+          f"needed 7,766,016 frames for 100 errors); dev sweep whole")
+    for (name, fer), call in zip(record["dev_fers_bc4"].items(), calls):
+        book_point(book, "a", f"dev {name}", call,
+                   (round(fer * 131072), 131072))
+    why = (None if sel == record["selected"] else
+           f"selected {sel}, the record {record['selected']}")
+    for call in calls[6:]:
+        jp = record["deep"][str(call[1])]
+        book_point(book, "a", f"deep {sel}", call,
+                   (round(jp["fer"] * jp["frames"]), jp["frames"]), why=why)
+    print(f"  (a) selected {sel} (the record {record['selected']}); K1 "
+          f"launches {k1}; {time.perf_counter() - t0:.1f} s")
+    return k1
+
+
+def p19_deep(tag, book, calls, res, record, arms, why=None):
+    """The watched deep points of ``arms`` in ``res`` ({arm: {key:
+    point}}, measured in that order) beside ``record``'s; returns {(arm,
+    key): call}."""
+    keys = [(arm, key) for arm in arms for key in res[arm]]
+    if len(keys) != len(calls):
+        raise AssertionError(f"({tag}) {len(calls)} calls for {keys}")
+    for (arm, key), call in zip(keys, calls):
+        jp = record.get(arm, {}).get(key)
+        book_point(book, tag, arm, call,
+                   jp and (jp["errors"], jp["frames"]), why=why)
+    return dict(zip(keys, calls))
+
+
+def phase19_refine(dev, card, tmp, book, record):
+    """(b): ``bc4_refine.deep`` (arms bc4 and bc3) from 6.0 to 6.6 dB, each
+    point capped at P19_CAP frames, every point Fisher-tested. Returns
+    (K1's launches, {(arm, SNR key): watched call})."""
+    from ldpc_tpu_torch.cli import bc4_refine as br
+
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        with SimWatch() as w:
+            res = br.deep(snr_hi=6.6, frames=P19_CAP, verbose=False,
+                          device=dev)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    k1 = w.launches()
+    only_k1("(b)", read_counts(), k1)
+    print(f"  (b) bc4_refine deep cut: 6.0-6.6 dB of 6.0-7.6, frame cap "
+          f"{P19_CAP:,} (the program's 200,000,000; it binds at 6.6 dB, "
+          f"where the record needed 30.8M and 56.8M frames for 100 "
+          f"errors); waves 32768, budget 4096, min frames 65536")
+    calls = p19_deep("b", book, w.calls, res, record, ("bc4", "bc3"))
+    print(f"  (b) K1 launches {k1}; {time.perf_counter() - t0:.1f} s")
+    return k1, calls
+
+
+def phase19_count(dev, card, tmp, book, record, record13, refine):
+    """(c): ``quantizer_count.deep`` (rcq-q2 from the committed design,
+    rcq-q3) from 6.0 to 6.6 dB capped at P19_CAP frames, rcq-q3 held to
+    (b)'s bc3, the same decoder on the same seeded stream (``refine``:
+    (b)'s watched calls): at each point the waves both ran count the same
+    wave by wave, so their totals are equal where both stop after the same
+    waves (their error targets, 50 and 100, part them when the first
+    65,536 frames hold 50-99 errors); ``deep13``'s p2 from 1.4 to
+    2.4 dB and p3 at P19_P3's point and cap (printed), every K1 launch on
+    the lift-43 code checked for zeros at the punctured positions as it
+    reaches the kernel. Returns K1's launches."""
+    from ldpc_tpu_torch.cli import quantizer_count as qcn
+    from ldpc_tpu_torch.decode import fused
+
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        with SimWatch() as w:
+            res = qcn.deep(snr_hi=6.6, frames=P19_CAP, verbose=False,
+                           device=dev)
+        torch.cuda.synchronize()
+        k1 = w.launches()
+        only_k1("(c) deep", read_counts(), k1)
+        print(f"  (c) quantizer_count deep cut: 6.0-6.6 dB of 6.0-7.8, "
+              f"frame cap {P19_CAP:,} (the program's 1,000,000,000); "
+              f"rcq-q2 from {qcn.DESIGN_RECORD.split('/')[-1]}")
+        calls = p19_deep("c", book, w.calls, res, record,
+                         ("rcq-q2", "rcq-q3"))
+        for k in ("6.0", "6.2", "6.4", "6.6"):
+            q, b = calls.get(("rcq-q3", k)), refine.get(("bc3", k))
+            if q is None or b is None:
+                # an arm stops at its first point without an error
+                if k != "6.6":
+                    raise AssertionError(f"(c) no rcq-q3 or bc3 point at "
+                                         f"{k} dB")
+                continue
+            qw, bw = q[6], b[6]
+            n = min(len(qw), len(bw))
+            prefix = qw[:n] == bw[:n]
+            print(f"  (c) rcq-q3 against (b)'s bc3 @ {k} dB: {q[5][4]}/"
+                  f"{q[5][3]} in {len(qw)} waves and {b[5][4]}/{b[5][3]} in "
+                  f"{len(bw)}; the {n} waves both ran equal wave by wave "
+                  f"{prefix}; totals equal {q[5][3:] == b[5][3:]}")
+            if not prefix or (len(qw) == len(bw) and q[5][3:] != b[5][3:]):
+                raise AssertionError(f"(c) rcq-q3 and bc3 differ at {k} dB")
+
+        dec13, punct = qcn._mk13("p2", dev)
+        n13, lo, hi = dec13.code.n, punct[0], punct[-1] + 1
+        del dec13
+        seen = dict(calls=0, nonzero=torch.zeros((), dtype=torch.int64,
+                                                 device=dev))
+        real = fused._launch
+
+        def spy(flooding, llr, *args):
+            if llr.shape[1] == n13:
+                seen["calls"] += 1
+                seen["nonzero"] += (llr[:, lo:hi] != 0).sum()
+            return real(flooding, llr, *args)
+
+        t1 = time.perf_counter()
+        reset_counts()
+        fused._launch = spy
+        try:
+            with SimWatch() as w13:
+                r2 = qcn.deep13(arms=("p2",), snr_hi=2.4, verbose=False,
+                                device=dev)
+                r3 = qcn.deep13(arms=("p3",), snr_lo=P19_P3[0],
+                                snr_hi=P19_P3[0], frames=P19_P3[1],
+                                verbose=False, device=dev)
+        finally:
+            fused._launch = real
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    k13 = w13.launches()
+    only_k1("(c) deep13", read_counts(), k13)
+    nonzero = int(seen["nonzero"])
+    print(f"  (c) deep13 cut: p2 at 1.4-2.4 dB of 1.4-3.6 (the program's "
+          f"50,000,000-frame cap, 100 errors), p3 at {P19_P3[0]} dB capped "
+          f"at {P19_P3[1]:,} frames; waves 98304, budget 4096, min frames "
+          f"65536; {seen['calls']} K1 launches on the lift-43 code, "
+          f"{nonzero} nonzero LLRs at its {hi - lo} punctured positions")
+    p19_deep("c", book, w13.calls[:len(r2["p2"])], r2, record13, ("p2",))
+    p19_deep("c", book, w13.calls[len(r2["p2"]):], {"p3": r3["p3"]}, {},
+             ("p3",), why="the program's p3 arm has no record")
+    if nonzero or seen["calls"] != k13:
+        raise AssertionError("(c) a punctured LLR reached K1 nonzero, or a "
+                             "launch went uncounted")
+    print(f"  (c) K1 launches {k1 + k13} (deep13 {k13}); deep "
+          f"{t1 - t0:.1f} s, deep13 {time.perf_counter() - t1:.1f} s")
+    return k1 + k13
+
+
+def phase19_dde(dev, card, tmp, book, record, bc3):
+    """(d): ``dde_ladders.run`` at P19_DDE_SNRS, its designer calls
+    answered by ``bc3`` (phase 12 (a)'s bc=3 design: CN, V2C, threshold)
+    and the JAX package's results (P19_DESIGN_BC4, P19_REFINED) after each
+    call is held to the program's; the dde and dde_cn_only arms of each bc
+    (and dde_refined where its CN ladder is dde's) count equal frame
+    errors; the hand arms Fisher-tested, the others printed (the record's
+    designs predate the decision-bias fix). Returns K1's launches."""
+    import types
+
+    from ldpc_tpu_torch import design as dsg
+    from ldpc_tpu_torch.cli import dde_ladders as dl
+    from ldpc_tpu_torch.cli import deep_fer
+
+    t0 = time.perf_counter()
+    base = deep_fer.bench_base(256)
+    profile = dsg.degree_profile_from_base(base)
+    answers = {3: tuple(bc3), 4: P19_DESIGN_BC4}
+    made = []
+
+    def design_rcq_ladders(prof, **kw):
+        bc = kw.get("bc")
+        made.append(("design_rcq_ladders", bc))
+        if prof != profile or kw != dict(DESIGN_CALL, bc=bc):
+            raise AssertionError(f"(d) design_rcq_ladders({kw})")
+        qp, vqp, thr = answers[bc]
+        return qp, vqp, types.SimpleNamespace(threshold_db=thr)
+
+    def refine(b, qp, vqp, **kw):
+        bc = kw.get("bc")
+        made.append(("refine_ladders_protograph", bc))
+        if not np.array_equal(b, base) or (qp, vqp) != answers[bc][:2] or \
+                kw != dict(bc=bc, bv=8, max_iterations=6, snr_db=6.3,
+                           schedule="layered"):
+            raise AssertionError(f"(d) refine_ladders_protograph({kw})")
+        return P19_REFINED[bc]
+
+    real = dsg.design_rcq_ladders, dsg.refine_ladders_protograph
+    dsg.design_rcq_ladders, dsg.refine_ladders_protograph = \
+        design_rcq_ladders, refine
+    reset_counts()
+    try:
+        with SimWatch() as w:
+            rep = dl.run(dev_snrs=P19_DDE_SNRS, out_path=os.path.join(
+                tmp, "dde_ladders.json"), verbose=False, device=dev)
+    finally:
+        dsg.design_rcq_ladders, dsg.refine_ladders_protograph = real
+    torch.cuda.synchronize()
+    k1 = w.launches()
+    only_k1("(d)", read_counts(), k1)
+    if made != [(c, bc) for bc in (3, 4) for c in (
+            "design_rcq_ladders", "refine_ladders_protograph")]:
+        raise AssertionError(f"(d) designer calls {made}")
+    d3 = rep["designs"]["3"]
+    if (d3["cn"], d3["v2c"]) != (DESIGN_QP, DESIGN_VQP):
+        raise AssertionError(f"(d) bc=3 design {d3}")
+    print(f"  (d) dde_ladders cut: {P19_DDE_SNRS} dB of (6.4, 6.5), "
+          f"262,144 frames an arm; the program's four designer calls made "
+          f"(bc=3 design: phase 12 (a)'s, equal to DESIGN_QP / DESIGN_VQP; "
+          f"the bc=4 design and both refines: the JAX package's results, "
+          f"P19_DESIGN_BC4 and P19_REFINED): designs "
+          f"{rep['designs']}, refined {rep['refined']}")
+    counts = {}
+    for key, call in zip(rep["fers"], w.calls, strict=True):
+        name = key.split("@")[0]
+        counts[name] = call[5][4]
+        jf = record["fers"].get(key)
+        hand = name.endswith("_hand")
+        book_point(book, "d", name, call, (round(jf * 262144), 262144),
+                   why=None if hand else "its record, 2026-08-19, predates "
+                   "the decision-bias fix a34eb06")
+    for bc in (3, 4):
+        pairs = [(f"bc{bc}_dde", f"bc{bc}_dde_cn_only")]
+        if rep["refined"][str(bc)]["cn"] == rep["designs"][str(bc)]["cn"]:
+            pairs.append((f"bc{bc}_dde", f"bc{bc}_dde_refined"))
+        for a, b in pairs:
+            print(f"  (d) {a} {counts[a]} and {b} {counts[b]} frame errors: "
+                  f"equal {counts[a] == counts[b]}")
+            if counts[a] != counts[b]:
+                raise AssertionError(f"(d) {a} and {b} differ")
+    print(f"  (d) K1 launches {k1}; {time.perf_counter() - t0:.1f} s")
+    return k1
+
+
+def phase19(dev, card, bc3=None):
+    """The bench-code design studies' twins at the programs' widths;
+    returns K1's launches and the largest posterior difference. ``bc3``
+    is phase 12 (a)'s bc=3 design (CN, V2C, threshold); None takes the
+    JAX package's (DESIGN_QP, DESIGN_VQP, DESIGN_THRESHOLD), which phase
+    12 holds it to (phase 19 alone)."""
+    import tempfile
+
+    from ldpc_tpu_torch.cli import dde_ladders as dl
+
+    print("[19 bench-code design-study twins]")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    record = {}
+    for prog in ("ladder_bc4", "bc4_refine", "quantizer_count",
+                 "quantizer_count13", "dde_ladders"):
+        with open(os.path.join(root, "experiments",
+                               f"{prog}_results.json")) as f:
+            record[prog] = json.load(f)
+    bc3 = bc3 or (DESIGN_QP, DESIGN_VQP, DESIGN_THRESHOLD)
+    dde = dl.arms({3: bc3[:2], 4: P19_DESIGN_BC4[:2]},
+                  {bc: P19_REFINED[bc][:2] for bc in (3, 4)}, device=dev)
+    err, decs = phase19_checks(dev, card, dde)
+    with open(os.path.join(root, "experiments",
+                           "quantizer_count_design.json")) as f:
+        d = json.load(f)
+    with open(os.path.join(root, "experiments",
+                           "quantizer_count_design13_polish.json")) as f:
+        p2 = json.load(f)["cn"]
+    phase19_tables(card, {"rcq-q2": (decs["rcq-q2"], [tuple(p) for p in d[
+        "passes"][d["best_index"]]["cn"]]), "p2": (decs["p2"], [
+            tuple(p) for p in p2])})
+    phase19_neutral(dev, card, dde)
+    del dde, decs
+    torch.cuda.empty_cache()
+    print(f"  K1 checks {time.perf_counter() - t_phase:.1f} s")
+    book = FisherBook(card)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        k_a = phase19_ladder(dev, card, tmp, book, record["ladder_bc4"])
+        torch.cuda.empty_cache()
+        k_b, refine = phase19_refine(dev, card, tmp, book,
+                                     record["bc4_refine"])
+        torch.cuda.empty_cache()
+        k_c = phase19_count(dev, card, tmp, book, record["quantizer_count"],
+                            record["quantizer_count13"], refine)
+        torch.cuda.empty_cache()
+        k_d = phase19_dde(dev, card, tmp, book, record["dde_ladders"], bc3)
+    k1 = k_a + k_b + k_c + k_d
+    secs = time.perf_counter() - t_phase
+    print(f"  {book.tested} points Fisher-tested against the JAX records; "
+          f"K1 launches in phase 19 {k1} (a {k_a}, b {k_b}, c {k_c}, d "
+          f"{k_d}), no K4, K5 or K6; phase {secs:.1f} s (limit {P19_LIMIT} "
+          f"s)")
+    if book.failed:
+        raise AssertionError(f"points off the JAX records (p < {P15_P}): "
+                             f"{book.failed}")
+    if secs > P19_LIMIT:
+        raise AssertionError(f"phase 19 took {secs:.1f} s, over "
+                             f"{P19_LIMIT} s")
+    return dict(K1=k1, k1_err=err)
+
+
 def run(design, de, spectrum):
-    """Phases 1-18; ``design``, ``de`` and ``spectrum`` are the result
+    """Phases 1-19; ``design``, ``de`` and ``spectrum`` are the result
     handles of :func:`bench_design`, :func:`de_data` and
     :func:`spectrum_data` running in a worker process."""
     import ldpc_tpu_torch as lt
@@ -3664,6 +4203,8 @@ def run(design, de, spectrum):
     p17 = phase17(dev, card)
     torch.cuda.empty_cache()
     p18 = phase18(dev, card, spectrum)
+    torch.cuda.empty_cache()
+    p19 = phase19(dev, card, design.get()[:3])
 
     print(f"[script] {time.perf_counter() - T_START:.1f} s from the start")
     print(card)
@@ -3674,9 +4215,11 @@ def run(design, de, spectrum):
         "source": "ldpc_tpu_torch/csrc/fused_layered.cu",
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
         "launches": (launches + p12_launches + p13["K1"] + p14["K1"] +
-                     p15["K1"] + p16["K1"] + p17["K1"] + p18["K1"]),
+                     p15["K1"] + p16["K1"] + p17["K1"] + p18["K1"] +
+                     p19["K1"]),
         "max_abs_err": max(max_err, p12_err, p14["k1_err"], p15["k1_err"],
-                           p16["k1_err"], p17["k1_err"], p18["k1_err"]),
+                           p16["k1_err"], p17["k1_err"], p18["k1_err"],
+                           p19["k1_err"]),
         "ms": times[256][0],
         "plain_ms": times[256][1],
         "bound_ms": k1_bound[0],

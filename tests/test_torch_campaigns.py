@@ -521,8 +521,9 @@ def test_twin_needs_a_card_unless_told_cpu(twin, monkeypatch):
 
 def test_twins_import_without_jax():
     """This file's twins and those of ``test_torch_bench_programs.py``,
-    ``test_torch_training_programs.py`` and ``test_torch_floor_programs.py``
-    (one interpreter start for all)."""
+    ``test_torch_training_programs.py``, ``test_torch_floor_programs.py``
+    and ``test_torch_design_programs.py`` (one interpreter start for
+    all)."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import ldpc_tpu_torch.cli.fer_parity, "
             "ldpc_tpu_torch.cli.accuracy_bc3, ldpc_tpu_torch.cli.deep_fer, "
@@ -535,7 +536,10 @@ def test_twins_import_without_jax():
             "ldpc_tpu_torch.cli.rate_specific_deep, "
             "ldpc_tpu_torch.cli.pbrl_bc5, ldpc_tpu_torch.cli.pbrl_lift_floor, "
             "ldpc_tpu_torch.cli.pbrl_precode, ldpc_tpu_torch.cli.floor_is, "
-            "ldpc_tpu_torch.cli.trapping_spectrum; "
+            "ldpc_tpu_torch.cli.trapping_spectrum, "
+            "ldpc_tpu_torch.cli.ladder_bc4, ldpc_tpu_torch.cli.bc4_refine, "
+            "ldpc_tpu_torch.cli.quantizer_count, "
+            "ldpc_tpu_torch.cli.dde_ladders; "
             "assert 'ldpc_tpu' not in sys.modules; "
             "assert 'experiments' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True,
