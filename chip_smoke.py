@@ -69,13 +69,13 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    layered T=6: W-OMS-RCQ, sharing type 2, on QC(9472, 8192)) rebuilt from
    their recipes with the port's initial weights, trained through
    ``PosteriorJointTrainer`` with the configurations of
-   ``experiments/accuracy_bc3.py`` (B=128, 3 steps, one ``train_epoch``)
+   ``experiments/accuracy_bc3.py`` (B=128, 2 steps, one ``train_epoch``)
    and ``experiments/train_layered_short.py`` (cosine with 8 warmup
-   updates: 4 steps, the first at learning rate 0, so its weights stay);
+   updates: 3 steps, the first at learning rate 0, so its weights stay);
    each step's loss, CUDA-event time and peak memory, the CUDA launches of
    one layered step (torch.profiler); one B=16 batch stepped twice on the card and
    on a CPU copy of the flooding decoder, held to float tolerance; the
-   gradient analyzer (``torch.func.vmap``) on 16 frames at 6.5 dB, four
+   gradient analyzer (``torch.func.vmap``) on 16 frames at 6.5 dB, two
    of its norms recomputed one frame at a time; no K1, K4, K5 or K6
    launch while training (the training route is the engines'); then each
    trained decoder's weights in its fused bf16 twin, K4 (flooding) and K1
@@ -157,7 +157,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    their compaction (64 frames at 6.5 dB, bf16, full output) and timed at
    the campaign's shapes against their bounds; (a) ``deep_fer``'s
    decoders through ``sweep`` (32768-frame waves, budget 2048, 100
-   errors, a 6e7-frame cap): RCQ-bc3-L6 at 6.4, 6.5 and 6.6 dB, RCQ-bc4-L6
+   errors, a 2^23-frame cap): RCQ-bc3-L6 at 6.4, 6.5 and 6.6 dB, RCQ-bc4-L6
    at 6.5, float-MS-L6 at 6.4 ({3, 6}, K1) and the trained flooding
    decoder at 6.4 and 6.5 ({5, 10}, K4); (b) ``deep_fer_trained_l6`` at 6.4
    and 6.5 dB ({2, 6}, K1), each point's frames/s and wave kinds printed
@@ -183,12 +183,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    survivors within S, the same bits under S = 512, 256 and 128, the three
    rates; (b) ``ee_trained`` at B=8192: the six survivor counts beside the
    JAX record (the three at t1=2 Fisher-tested), the arms the counts
-   select and their rates; (c) ``bench_dde``: ``train`` cut to 2 steps
+   select and their rates; (c) ``bench_dde``: ``train`` cut to one step
    (no launch), then ``deep`` on the zoo's ``worcq_bc3_layered_t6_dde``
    and the bench decoder (32768-frame waves, budget 4096, 100 errors;
-   RCQ-dde-L6 at 6.4-6.6 dB, the last capped at 2^23 frames, W-ORCQ-dde-L6
+   RCQ-dde-L6 at 6.4-6.6 dB, the last capped at 2^22 frames, W-ORCQ-dde-L6
    at 6.4 and 6.5 dB), each point's frames/s and wave kinds; (d)
-   ``train_layered_short``: the four arms cut to 2 steps each (no launch),
+   ``train_layered_short``: the four arms cut to one step each (no launch),
    the FER table at 65,536 frames a point, RCQ-L6 and RCQ-L5
    Fisher-tested, the zoo's T=5 and T=4 entries beside their recorded
    FER. Points as in phase 15: p >= 1e-3 where the JAX record has at
@@ -267,11 +267,11 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    (one CN ladder, V2C ladders apart), full and lean: equal bits, success
    and iterations. (a) ``ladder_bc4`` whole (six ladders at 6.4 dB,
    131,072 frames each; the selected one at 6.5 and 6.6 dB, {2, 6},
-   32768-frame waves, budget 2048, capped at 2^23 frames); (b)
+   32768-frame waves, budget 2048, capped at 2^22 frames); (b)
    ``bc4_refine``'s deep phase, arms bc4 and bc3 at 6.0-6.6 dB ({3, 6},
-   budget 4096, 100 errors, capped at 2^23 frames); (c)
+   budget 4096, 100 errors, capped at 2^22 frames); (c)
    ``quantizer_count``'s deep phase (rcq-q2 from the committed design,
-   rcq-q3) at 6.0-6.6 dB (50 errors, capped at 2^23), rcq-q3 (the same
+   rcq-q3) at 6.0-6.6 dB (50 errors, capped at 2^22), rcq-q3 (the same
    decoder and seeded stream as (b)'s bc3, with an error target of 50,
    not 100) equal to bc3 wave by wave over the waves both ran at each
    point, and deep13's p2 at 1.4-2.4 dB ({5,
@@ -288,6 +288,36 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    the record's ladder), every point of (b), (c)'s deep and p2, and
    ``dde_ladders``' hand arms; no K4, K5 or K6 launch; the phase must end
    within 240 s.
+20. the section VII-C rate-family programs' twins
+   (``ldpc_tpu_torch/cli/pbrl_rates.py``, ``tighten89.py``) at the
+   programs' codes (the precoded PBRL family, k=1032, lift 43: rates 8/9,
+   2/3, 1/2 and 1/3, n = 1204, 1591, 2107 and 3139, base column 0's 43
+   bits punctured), waves (262,144, 196,608, 131,072 and 98,304 frames),
+   budgets and seeds (only SNR points, frame caps and training steps cut,
+   each cut printed), only K1 launching, held first to its plain version
+   bit for bit in bf16 at every (rate, iterations, batch) the campaigns
+   launch (stage 1 T=5 at the full wave, stage 2 T=10 at B=4096, the
+   fallback's whole decode T=10 at the full wave) and at each table kind:
+   ``oms6``, the 3-pair ``rcq-pol``, the 4-pair ``rcq-q4`` and 5-pair
+   ``rcq-q5`` (``phase_schedule``'s even spread), the trained type-2
+   ``wrcq-89`` and ``wrcq-89-q4`` and the per-layer ``wrcq-13pl`` (beta
+   [10, 147], alpha [10, 588]), whose tables must equal the JAX
+   program's (``cli/pbrl_rates_tables.npz``), each timed against its bound
+   with K1's registers, shared memory, check-state placement and CTAs per
+   SM: (a) ``tighten89`` at 9.0 dB, each arm capped at 2^24 frames,
+   Fisher-tested against ``experiments/tighten89_results.json``; (b)
+   ``pbrl_rates``' deep scan (rate 8/9: ``oms6``, ``rcq-pol``,
+   ``wrcq-89-q4``; 2/3 ``rcq-q5``; 1/2 ``rcq-q4``; 1/3 ``wrcq-13pl``)
+   from each record's first point with the program's walk, every point
+   capped at 2^19 frames, each point beside
+   ``experiments/pbrl_rates_ck/<tag>_<arm>.json``; every K1 launch of (a)
+   and (b) checked for zeros at the punctured positions as it reaches the
+   kernel; (c) ``train`` at rate 8/9 cut to 2 steps (the engines, no
+   launch), each step timed, its checkpoint through ``mk("wrcq-89")`` and
+   one wave at 9.0 dB; (d) ``report`` on (b)'s scans, printed. Points as
+   in phase 15, Fisher-tested where both the record and this run hold at
+   least 20 errors and 20 successes; no K4, K5 or K6 launch; the phase
+   must end within 200 s.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -403,19 +433,23 @@ PB_SIM = dict(snr_range=(PB_SNR, PB_SNR), snr_step=0.25, max_frames=65536,
 PB_REF_FER, PB_REF_FRAMES = 54307 / 65536, 65536
 # phase 11: training at full width on the zoo's two operating recipes
 # (zoo/<entry>/spec.json), with fresh weights from the port's generator.
-# Flooding: experiments/accuracy_bc3.py:96-103's configuration, 3 steps
-# (a depth cut: the script's time limit holds phases 1-19; 4 until the
-# bench-code design studies' phase 19 took the time). The analyzer's
-# batch was 32 frames until then, 16 now.
-# Layered: experiments/train_layered_short.py:85-90's, 4 steps; its
-# decay_steps is the run the zoo entry came from (32 epochs x 2048 // 128
-# batches = 512; the 4 steps taken here are inside the 8-step warmup)
+# Flooding: experiments/accuracy_bc3.py:96-103's configuration, 2 steps
+# (a depth cut: the script's time limit holds phases 1-20; 4 until the
+# bench-code design studies' phase 19 took the time, 3 until the
+# rate-family phase 20 did). The analyzer's batch was 32 frames until
+# phase 19, 16 now; TR_SINGLE of them are recomputed one at a time (4
+# until phase 20).
+# Layered: experiments/train_layered_short.py:85-90's, 3 steps (4 until
+# phase 20); its decay_steps is the run the zoo entry came from (32 epochs
+# x 2048 // 128 batches = 512; the steps taken here are inside the 8-step
+# warmup)
 TR_CFG = dict(batch_size=128, learning_rate=2e-3, snr_range=(5.5, 7.5),
               early_stop_accuracy=2.0, seed=0)
 TR_LAYERED_CFG = dict(TR_CFG, lr_schedule="cosine", warmup_steps=8,
                       decay_steps=512)
-TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 3, 4, 16
+TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 2, 3, 16
 TR_ANALYZE = dict(num_samples=16, snr_db=6.5)
+TR_SINGLE = 2
 # card vs CPU, one step: the loss (a mean) and the accuracy to a few
 # roundings, the gradient norm to the gradients' tolerance (the backward
 # of a gather adds with atomics on the card), the Adam-updated weights
@@ -456,12 +490,13 @@ P14_REPS, P14_FRAMES = 10, 64
 # phase 15: the FER campaign programs' twins (ldpc_tpu_torch/cli/) at their
 # full width (lift 256, their waves, budgets and error targets); only SNR
 # points and frame caps are cut. The deep-FER points (decoder, SNRs); the
-# frame cap is deep_fer.py's 5e7 cut to 2^24: it binds only at RCQ-bc3-L6's
+# frame cap is deep_fer.py's 5e7 cut to 2^23: it binds only at RCQ-bc3-L6's
 # 6.6 dB, where the JAX record's FER 1.85e-6 (100 errors in 54,034,432
-# frames) expects about 31 errors (the cap was 6e7, ≈ 35 s more of waves)
+# frames) expects about 15 errors (the cap was 6e7, then 2^24 until the
+# rate-family phase 20 took the time)
 P15_DEEP = (("RCQ-bc3-L6", (6.4, 6.5, 6.6)), ("RCQ-bc4-L6", (6.5,)),
             ("float-MS-L6", (6.4,)), ("W-OMS-RCQ-bc3-trained", (6.4, 6.5)))
-P15_L6_SNRS, P15_CAP = (6.4, 6.5), 2 ** 24
+P15_L6_SNRS, P15_CAP = (6.4, 6.5), 2 ** 23
 P15_LIFT, P15_WAVE = 256, 32768
 # accuracy_bc3: the full dev sweep, train_pair cut to one epoch of 128
 # frames (one step a decoder; 2 until phase 19 took the time: the trained
@@ -481,16 +516,19 @@ P15_WAVE_CHECK = ("RCQ-bc3-L6", "W-OMS-RCQ-bc3-trained")
 # (ldpc_tpu_torch/cli/) at their full width: lift 256, the programs'
 # batches, budgets and waves; only SNR points, frame caps and training
 # steps are cut. bench_dde's deep points (decoder, SNRs, frame cap): its
-# 5e7 cap cut to 2^23 at 6.6 dB (the JAX record's FER 1.56e-6 expects
-# about 13 errors there; the cap was 2e7 until the bench-code design
-# studies' phase 19 took the time); every training cut to one epoch of 256
-# frames (2 steps). K1 is held to its plain version first at every (decoder,
+# 5e7 cap cut to 2^22 at 6.6 dB (the JAX record's FER 1.56e-6 expects
+# about 7 errors there; the cap was 2e7 until the bench-code design
+# studies' phase 19 took the time, then 2^23 until the rate-family phase
+# 20 did); every training cut to one epoch of 128
+# frames (one step; 2 until phase 20 took the time: the cosine schedule
+# keeps the program's 16 updates an epoch). K1 is held to its plain
+# version first at every (decoder,
 # iterations, batch) the part launches: each stage 1 and whole decode at
 # the part's batch, each stage 2 at its budget
 P16_DEEP = (("RCQ-dde-L6", (6.4, 6.5), 5 * 10 ** 7),
-            ("RCQ-dde-L6", (6.6,), 2 ** 23),
+            ("RCQ-dde-L6", (6.6,), 2 ** 22),
             ("W-ORCQ-dde-L6", (6.4, 6.5), 5 * 10 ** 7))
-P16_TRAIN, P16_CHECK_SNR = dict(epochs=1, num_samples=256), 6.5
+P16_TRAIN, P16_CHECK_SNR = dict(epochs=1, num_samples=128), 6.5
 # train_layered_short's FER table: the program's frames a point
 P16_FRAMES = 65536
 # ee_trained's survivor counts Fisher-tested against the JAX record's
@@ -540,8 +578,9 @@ P18_WAVE, P18_BUDGET = 32768, 4096
 # 1e9), deep13's p2 at 1.4-2.4 dB and p3 at P19_P3's point and cap
 # (printed only: no record); (d) dde_ladders' arms at P19_DDE_SNRS (6.5
 # dB cut) at the program's 262,144 frames. K1 is first held to its plain
-# version at the P19 checks' shapes on LLRs drawn at the part's check SNR
-P19_CAP, P19_DDE_SNRS, P19_LIMIT = 2 ** 23, (6.4,), 240
+# version at the P19 checks' shapes on LLRs drawn at the part's check SNR.
+# P19_CAP was 2^23 until the rate-family phase 20 took the time
+P19_CAP, P19_DDE_SNRS, P19_LIMIT = 2 ** 22, (6.4,), 240
 P19_P3 = (2.0, 2 ** 21)
 P19_CHECK_SNR, P19_CHECK13_SNR = 6.4, 2.0
 # dde_ladders' designer calls other than the bc=3 design (phase 12 (a)'s
@@ -558,6 +597,35 @@ P19_DESIGN_BC4 = (((6.9657, 1.3), (4.8879, 1.3), (8.4285, 1.3)),
                   6.112500000000001)
 P19_REFINED = {3: (DESIGN_QP, DESIGN_VQP, 6.112500000000001),
                4: P19_DESIGN_BC4}
+# phase 20: the section VII-C rate-family programs' twins
+# (ldpc_tpu_torch/cli/pbrl_rates.py, tighten89.py) at the programs' codes
+# (the precoded PBRL family at lift 43, rates 1/3-8/9), widths, waves,
+# budgets and seeds; only SNR points, frame caps and training steps are
+# cut, each cut printed: (a) tighten89's three arms at 9.0 dB capped at
+# P20_T89_CAP frames (the program's 2.5e8 and 500 errors; the record's FER
+# 2e-6 expects about 34 errors), 9.2 dB cut; (b) pbrl_rates' deep scan of
+# P20_DEEP's arms from each record's first point, every point capped at
+# P20_DEEP_CAP frames (the program's 5e7; the walk's 2e6 cap of its coarse
+# points binds only above it); (c) train at rate 8/9 cut to
+# P20_TRAIN_SAMPLES frames (2 steps of 128; the program's 30 epochs of
+# 2048); (d) report on (b)'s scans. K1 is first held to its plain version
+# at every (rate, iterations, batch) the campaigns launch on one arm and at
+# each table kind (P20_CHECKS: stage 1 T=5 at the rate's full wave, stage
+# 2 T=10 at the budget, the fallback's whole decode T=10 at the full
+# wave), on LLRs drawn at the rate's P20_CHECK_SNR with base column 0's 43
+# bits punctured
+P20_CHECKS = (("89", "oms6", ((5, 262144), (10, 4096), (10, 262144))),
+              ("89", "rcq-pol", ((5, 262144),)),
+              ("89", "wrcq-89-q4", ((5, 262144), (10, 4096))),
+              ("89", "wrcq-89", ((10, 4096),)),
+              ("23", "rcq-q5", ((5, 196608), (10, 4096), (10, 196608))),
+              ("12", "rcq-q4", ((5, 131072), (10, 4096), (10, 131072))),
+              ("13", "wrcq-13pl", ((5, 98304), (10, 4096), (10, 98304))))
+P20_CHECK_SNR = {"89": 7.2, "23": 5.6, "12": 3.9, "13": 1.4}
+P20_T89_SNR, P20_T89_CAP = 9.0, 2 ** 24
+P20_DEEP = (("89", ("oms6", "rcq-pol", "wrcq-89-q4")), ("23", ("rcq-q5",)),
+            ("12", ("rcq-q4",)), ("13", ("wrcq-13pl",)))
+P20_DEEP_CAP, P20_TRAIN_SAMPLES, P20_LIMIT = 2 ** 19, 256, 200
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -1251,7 +1319,8 @@ def phase10(dev, card):
     for r, d in decs.items():
         line = []
         for B_, x_ in ((PB_B, llr), (PB_BIG, big)):
-            ms = time_ms(lambda: d(x_), 3 if B_ == PB_B else 2)
+            # one timed decode at B=32768 (2 until phase 20 took the time)
+            ms = time_ms(lambda: d(x_), 3 if B_ == PB_B else 1)
             line.append(f"B={B_} {ms:.2f} ms, {B_ / ms * 1e3:.1f} cw/s")
         n_k = cuda_launches(lambda: d(llr))
         print(f"  time {r:14s}: {'; '.join(line)}; "
@@ -1437,7 +1506,7 @@ def phase11(dev, card):
     del pair, fresh
 
     # the gradient analyzer through torch.func.vmap, on the trained flooding
-    # decoder; four norms recomputed one frame at a time
+    # decoder; TR_SINGLE norms recomputed one frame at a time
     an = lt.GradientExplosionAnalyzer(decs["flooding"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1452,7 +1521,7 @@ def phase11(dev, card):
     final = np.asarray(res["final_only"]["norms"])
     single = []
     t0 = time.perf_counter()
-    for i in range(4):
+    for i in range(TR_SINGLE):
         w = {k: v.clone().requires_grad_(True)
              for k, v in decs["flooding"].weights.items()}
         loss, _ = lt.posterior_joint_loss(
@@ -1460,12 +1529,13 @@ def phase11(dev, card):
             decoder=decs["flooding"], joint=True)
         gs = torch.autograd.grad(loss, list(w.values()))
         single.append(float(torch.sqrt(sum((g ** 2).sum() for g in gs))))
-    rel = np.abs(joint[:4] - single) / np.abs(single)
+    rel = np.abs(joint[:TR_SINGLE] - single) / np.abs(single)
     print(f"  analyzer (vmap) {TR_ANALYZE}: {a_secs:.2f} s (joint and "
           f"final-only); joint mean {res['posterior_joint']['mean']:.4g}, "
           f"max {res['posterior_joint']['max']:.4g}; final-only mean "
           f"{res['final_only']['mean']:.4g}, max "
-          f"{res['final_only']['max']:.4g}; frames 0-3 one at a time "
+          f"{res['final_only']['max']:.4g}; frames 0-{TR_SINGLE - 1} one at "
+          f"a time "
           f"({time.perf_counter() - t0:.1f} s): relative |d| "
           f"{rel.max():.3g}  [{card}]")
     if not (np.isfinite(joint).all() and np.isfinite(final).all()
@@ -3916,8 +3986,301 @@ def phase19(dev, card, bc3=None):
     return dict(K1=k1, k1_err=err)
 
 
+def p20_tables(name, dec):
+    """Whether a ``wrcq`` arm decodes with exactly the JAX program's
+    trained tables (``cli/pbrl_rates_tables.npz``); printed."""
+    from ldpc_tpu_torch.cli import pbrl_rates as pr
+    ck = "orcq_" + name.split("/")[1][5:].replace("-", "_")
+    with np.load(pr.TABLES) as f:
+        same = all(torch.equal(dec.weights[k].cpu(),
+                               torch.from_numpy(f[f"{ck}/{k}"]))
+                   for k in ("beta", "alpha"))
+    shapes = {k: tuple(v.shape) for k, v in dec.weights.items()}
+    print(f"  {name}: tables {shapes} equal to {ck} of "
+          f"pbrl_rates_tables.npz: {same}")
+    if not same:
+        raise AssertionError(f"{name} does not decode with {ck}'s tables")
+
+
+def phase20_checks(dev, card):
+    """K1 against its plain version at each of P20_CHECKS' (arm, T, B), bit
+    for bit in bf16 with the full output on LLRs punctured as the
+    simulator's mask does (:func:`phase16_check`), each timed against its
+    bound, with each decoder's K1 facts; the ``wrcq`` arms' tables held to
+    the JAX program's. Run in the phase's working directory (the arms
+    install their tables there). Returns (max |d posterior|, {(name, T,
+    B): kernel ms})."""
+    from ldpc_tpu_torch.cli import pbrl_rates as pr
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    err, ms, setups = 0.0, {}, {}
+    for tag, arm, shapes in P20_CHECKS:
+        if tag not in setups:
+            setups[tag] = pr._mk_setup(tag, dev)
+        mk, punct, code = setups[tag]
+        name = f"{tag}/{arm}"
+        dec = mk(arm)
+        if arm.startswith("wrcq-"):
+            p20_tables(name, dec)
+        e, m = phase16_checks(dev, card, [
+            (name, dec, T_, B_, False) for T_, B_ in shapes], gen,
+            P20_CHECK_SNR[tag], punct)
+        err, ms = max(err, e), {**ms, **m}
+        print(k1_facts(dec, card) + f"; n = {code.n}, {dec.qc.mb}x"
+              f"{dec.qc.nb} base, {dec.qc.num_blocks} blocks, rows of "
+              f"degree up to {max(len(r) for r in dec.qc.row_blocks)}, "
+              f"{max(B_ for _, B_ in shapes) * code.n:,} LLRs at the "
+              f"largest batch")
+        del dec
+        torch.cuda.empty_cache()
+    return err, ms
+
+
+def p20_point(book, tag, name, call, ref, why=None):
+    """A watched point beside the record's (errors, frames) ``ref``:
+    Fisher-tested where both the record and this run hold at least P15_MIN
+    errors and P15_MIN successes."""
+    nf, ne = call[5][3], call[5][4]
+    if ref is not None and why is None and min(ne, nf - ne) < P15_MIN:
+        why = f"{ne} errors here"
+    book_point(book, tag, name, call, ref, why=why)
+
+
+def p20_punctured(dev, ns):
+    """A spy on ``fused._launch`` counting, for each launch on a code of
+    length n in ``ns`` ({n: punctured bit positions}), its LLRs at the
+    punctured positions that are not zero; returns (the spy's state, the
+    real function)."""
+    from ldpc_tpu_torch.decode import fused
+    seen = dict(calls=0, nonzero=torch.zeros((), dtype=torch.int64,
+                                             device=dev))
+    real = fused._launch
+
+    def spy(flooding, llr, *args):
+        punct = ns.get(llr.shape[1])
+        if punct is not None:
+            seen["calls"] += 1
+            seen["nonzero"] += (llr[:, punct[0]:punct[-1] + 1] != 0).sum()
+        return real(flooding, llr, *args)
+
+    fused._launch = spy
+    return seen, real
+
+
+def phase20_tighten(dev, card, book, record):
+    """(a): ``tighten89.main`` at P20_T89_SNR, each arm capped at
+    P20_T89_CAP frames, Fisher-tested against
+    ``experiments/tighten89_results.json``. Returns K1's launches."""
+    from ldpc_tpu_torch.cli import tighten89 as t89
+
+    t0 = time.perf_counter()
+    saved = t89.SNRS, t89.MAX_FRAMES
+    t89.SNRS, t89.MAX_FRAMES = (P20_T89_SNR,), P20_T89_CAP
+    reset_counts()
+    try:
+        with SimWatch() as w:
+            res = t89.main(device=dev)
+    finally:
+        t89.SNRS, t89.MAX_FRAMES = saved
+    torch.cuda.synchronize()
+    k1 = w.launches()
+    only_k1("(a)", read_counts(), k1)
+    print(f"  (a) tighten89 cut: {P20_T89_SNR} dB of (9.0, 9.2), frame cap "
+          f"{P20_T89_CAP:,} (the program's 250,000,000 and 500 errors); "
+          f"waves 262144, budget 4096, seed 99")
+    key = f"{P20_T89_SNR:.1f}"
+    for arm, call in zip(t89.ARMS, w.calls, strict=True):
+        jp = record[arm][key]
+        p20_point(book, "a", f"89/{arm}", call, (jp["errors"], jp["frames"]))
+        if res[arm][key]["frames"] != call[5][3]:
+            raise AssertionError(f"(a) {arm}: the file and the call differ")
+    print(f"  (a) K1 launches {k1}; {time.perf_counter() - t0:.1f} s")
+    return k1
+
+
+def phase20_deep(dev, card, book, records):
+    """(b): ``pbrl_rates.deep`` of P20_DEEP's arms from each record's first
+    point, every point capped at P20_DEEP_CAP frames; each point beside
+    the record's ``experiments/pbrl_rates_ck/<tag>_<arm>.json``. Returns
+    K1's launches."""
+    from ldpc_tpu_torch.cli import pbrl_rates as pr
+
+    t0 = time.perf_counter()
+    reset_counts()
+    with SimWatch() as w:
+        for tag, arms in P20_DEEP:
+            start = min(float(k) for k in records[tag, arms[0]]["points"])
+            pr.deep(tag, arms, snr_start=start, frames=P20_DEEP_CAP,
+                    verbose=False, device=dev)
+    torch.cuda.synchronize()
+    k1 = w.launches()
+    only_k1("(b)", read_counts(), k1)
+    print(f"  (b) pbrl_rates deep cut: every point capped at "
+          f"{P20_DEEP_CAP:,} frames (the program's 50,000,000), 100 errors; "
+          f"{{5, 10}}, budget 4096, the rate's wave; from each record's "
+          f"first point")
+    calls = iter(w.calls)
+    for tag, arms in P20_DEEP:
+        for arm in arms:
+            with open(os.path.join(pr.CK_DIR, f"{tag}_{arm}.json")) as f:
+                pts = json.load(f)["points"]
+            kinds = []
+            for key in pts:
+                call = next(calls)
+                kinds.append(call[3])
+                jp = records[tag, arm]["points"].get(key)
+                p20_point(book, "b", f"{tag}/{arm}", call,
+                          jp and (jp["errors"], jp["frames"]),
+                          None if jp else "no record point")
+            print(f"  (b) {tag}/{arm}: {len(pts)} points, waves "
+                  f"{sum(k.get('compacted', 0) for k in kinds)} compacted, "
+                  f"{sum(k.get('fallback', 0) for k in kinds)} fallback")
+    if next(calls, None) is not None:
+        raise AssertionError("(b) a call without a point")
+    print(f"  (b) K1 launches {k1}; {time.perf_counter() - t0:.1f} s")
+    return k1
+
+
+def phase20_train(dev, card):
+    """(c): ``pbrl_rates.train("89")`` cut to P20_TRAIN_SAMPLES frames (the
+    engines: no launch), each step timed; its checkpoint through
+    ``mk("wrcq-89")`` and one wave at P20_T89_SNR. Returns K1's
+    launches."""
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.cli import pbrl_rates as pr
+    from ldpc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    steps, real = [], lt.PosteriorJointTrainer.train_step
+
+    def timed(self, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(self, *args, **kw)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+        return out
+
+    saved = pr.NUM_SAMPLES
+    pr.NUM_SAMPLES = P20_TRAIN_SAMPLES
+    lt.PosteriorJointTrainer.train_step = timed
+    reset_counts()
+    try:
+        h = pr.train("89", epochs=1, verbose=False, device=dev)
+    finally:
+        pr.NUM_SAMPLES = saved
+        lt.PosteriorJointTrainer.train_step = real
+    torch.cuda.synchronize()
+    only_k1("(c) training", read_counts(), 0)
+    t_train = time.perf_counter() - t0
+    mk, punct, code = pr._mk_setup("89", dev)
+    dec = mk("wrcq-89")
+    saved_w = load_checkpoint(os.path.join(pr.CK_DIR, "orcq_89"))
+    if not all(torch.equal(dec.weights[k].cpu(), saved_w[k])
+               for k in ("beta", "alpha")):
+        raise AssertionError("(c) wrcq-89 did not load the trained tables")
+    cfg = lt.SimulationConfig(
+        snr_range=(P20_T89_SNR,) * 2, max_frames=pr.wave_size(code.n),
+        max_errors=10 ** 9, min_frames=0, wave_size=pr.wave_size(code.n),
+        early_exit_iters=pr.EARLY_EXIT, survivor_budget=pr.BUDGET,
+        punctured_positions=punct, save_results=False, device=dev)
+    reset_counts()
+    t1 = time.perf_counter()
+    fer, ber, it, nf, ne = lt.simulate_single_snr(dec, P20_T89_SNR, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    k1 = read_counts()["K1"]
+    only_k1("(c) wave", read_counts(), 2, 4)
+    print(f"  (c) train cut: rate 8/9, {len(steps)} steps of "
+          f"{pr.BATCH} ({P20_TRAIN_SAMPLES} frames, one epoch; the "
+          f"program's 30 epochs of 2048), loss "
+          f"{h['training_losses'][-1]:.5f}; step times "
+          f"{[round(1e3 * s, 1) for s in steps]} ms (the first with the "
+          f"warm-up); {t_train:.1f} s with validation  [{card}]")
+    print(f"  (c) wrcq-89 on the trained tables: one wave of {nf:,} frames "
+          f"at {P20_T89_SNR} dB, {ne} frame errors, avg iterations "
+          f"{it:.4f}, {secs:.2f} s, K1 launches {k1}  [{card}]")
+    if len(steps) != P20_TRAIN_SAMPLES // pr.BATCH:
+        raise AssertionError(f"(c) {len(steps)} training steps")
+    return k1
+
+
+def phase20(dev, card):
+    """The section VII-C rate-family twins at the programs' widths;
+    returns K1's launches and the largest posterior difference."""
+    import tempfile
+
+    from ldpc_tpu_torch.cli import pbrl_rates as pr
+    from ldpc_tpu_torch.decode import fused
+
+    print("[20 section VII-C rate-family twins]")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "experiments",
+                           "tighten89_results.json")) as f:
+        t89_record = json.load(f)
+    records = {}
+    for tag, arms in P20_DEEP:
+        for arm in arms:
+            with open(os.path.join(root, "experiments", "pbrl_rates_ck",
+                                   f"{tag}_{arm}.json")) as f:
+                records[tag, arm] = json.load(f)
+    ns = {}
+    for tag in pr.RATES:
+        base, lift, punct = pr.family(tag)
+        ns[base.shape[1] * lift] = range(lift * punct[0],
+                                         lift * (punct[0] + 1))
+    cwd = os.getcwd()
+    book = FisherBook(card)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.chdir(tmp)
+        try:
+            err, _ = phase20_checks(dev, card)
+            print(f"  K1 checks {time.perf_counter() - t_phase:.1f} s")
+            seen, real = p20_punctured(dev, ns)
+            try:
+                k_a = phase20_tighten(dev, card, book, t89_record)
+                torch.cuda.empty_cache()
+                k_b = phase20_deep(dev, card, book, records)
+            finally:
+                fused._launch = real
+            nonzero = int(seen["nonzero"])
+            print(f"  (a, b) {seen['calls']} K1 launches on the four codes, "
+                  f"{nonzero} nonzero LLRs at their punctured positions")
+            if nonzero or seen["calls"] != k_a + k_b:
+                raise AssertionError("a punctured LLR reached K1 nonzero, "
+                                     "or a launch went uncounted")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            rep = pr.report()
+            print(f"  (d) report on (b)'s scans: rates "
+                  f"{sorted(rep, key=float)}, {time.perf_counter() - t0:.2f}"
+                  f" s (printed, not held: the cut scans stop short of "
+                  f"FER 1e-6)")
+        finally:
+            os.chdir(cwd)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.chdir(tmp)
+        try:
+            k_c = phase20_train(dev, card)
+        finally:
+            os.chdir(cwd)
+    k1 = k_a + k_b + k_c
+    secs = time.perf_counter() - t_phase
+    print(f"  {book.tested} points Fisher-tested against the JAX records; "
+          f"K1 launches in phase 20 {k1} (a {k_a}, b {k_b}, c {k_c}), no "
+          f"K4, K5 or K6; phase {secs:.1f} s (limit {P20_LIMIT} s)")
+    if book.failed:
+        raise AssertionError(f"points off the JAX records (p < {P15_P}): "
+                             f"{book.failed}")
+    if secs > P20_LIMIT:
+        raise AssertionError(f"phase 20 took {secs:.1f} s, over "
+                             f"{P20_LIMIT} s")
+    return dict(K1=k1, k1_err=err)
+
+
 def run(design, de, spectrum):
-    """Phases 1-19; ``design``, ``de`` and ``spectrum`` are the result
+    """Phases 1-20; ``design``, ``de`` and ``spectrum`` are the result
     handles of :func:`bench_design`, :func:`de_data` and
     :func:`spectrum_data` running in a worker process."""
     import ldpc_tpu_torch as lt
@@ -4205,6 +4568,8 @@ def run(design, de, spectrum):
     p18 = phase18(dev, card, spectrum)
     torch.cuda.empty_cache()
     p19 = phase19(dev, card, design.get()[:3])
+    torch.cuda.empty_cache()
+    p20 = phase20(dev, card)
 
     print(f"[script] {time.perf_counter() - T_START:.1f} s from the start")
     print(card)
@@ -4216,10 +4581,10 @@ def run(design, de, spectrum):
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
         "launches": (launches + p12_launches + p13["K1"] + p14["K1"] +
                      p15["K1"] + p16["K1"] + p17["K1"] + p18["K1"] +
-                     p19["K1"]),
+                     p19["K1"] + p20["K1"]),
         "max_abs_err": max(max_err, p12_err, p14["k1_err"], p15["k1_err"],
                            p16["k1_err"], p17["k1_err"], p18["k1_err"],
-                           p19["k1_err"]),
+                           p19["k1_err"], p20["k1_err"]),
         "ms": times[256][0],
         "plain_ms": times[256][1],
         "bound_ms": k1_bound[0],

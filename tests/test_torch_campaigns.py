@@ -521,9 +521,9 @@ def test_twin_needs_a_card_unless_told_cpu(twin, monkeypatch):
 
 def test_twins_import_without_jax():
     """This file's twins and those of ``test_torch_bench_programs.py``,
-    ``test_torch_training_programs.py``, ``test_torch_floor_programs.py``
-    and ``test_torch_design_programs.py`` (one interpreter start for
-    all)."""
+    ``test_torch_training_programs.py``, ``test_torch_floor_programs.py``,
+    ``test_torch_design_programs.py`` and ``test_torch_rates_programs.py``
+    (one interpreter start for all)."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import ldpc_tpu_torch.cli.fer_parity, "
             "ldpc_tpu_torch.cli.accuracy_bc3, ldpc_tpu_torch.cli.deep_fer, "
@@ -539,7 +539,8 @@ def test_twins_import_without_jax():
             "ldpc_tpu_torch.cli.trapping_spectrum, "
             "ldpc_tpu_torch.cli.ladder_bc4, ldpc_tpu_torch.cli.bc4_refine, "
             "ldpc_tpu_torch.cli.quantizer_count, "
-            "ldpc_tpu_torch.cli.dde_ladders; "
+            "ldpc_tpu_torch.cli.dde_ladders, "
+            "ldpc_tpu_torch.cli.pbrl_rates, ldpc_tpu_torch.cli.tighten89; "
             "assert 'ldpc_tpu' not in sys.modules; "
             "assert 'experiments' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True,

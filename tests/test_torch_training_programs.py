@@ -43,11 +43,13 @@ import experiments.dde_ladders as jax_dl
 import experiments.floor_is as jax_fi
 import experiments.ladder_bc4 as jax_lb
 import experiments.pbrl_bc5 as jax_bc5
+import experiments.pbrl_rates as jax_pr
 import experiments.pbrl_lift_floor as jax_lf
 import experiments.pbrl_precode as jax_pc
 import experiments.quantizer_count as jax_qc
 import experiments.rate_specific as jax_rs
 import experiments.rate_specific_deep as jax_rsd
+import experiments.tighten89 as jax_t89
 import experiments.train_wrcq as jax_tw
 import experiments.train_wrcq_qc9472 as jax_tq
 import experiments.trapping_spectrum as jax_ts
@@ -61,8 +63,8 @@ from ldpc_tpu.decode.engine import decode_batch_layered as jax_layered
 from ldpc_tpu.sim import SimulationResult as JaxSimulationResult
 from ldpc_tpu_torch.cli import bc4_refine, dde_ladders, ladder_bc4
 from ldpc_tpu_torch.cli import deep_fer, floor_is, pbrl_bc5
-from ldpc_tpu_torch.cli import pbrl_lift_floor, pbrl_precode
-from ldpc_tpu_torch.cli import quantizer_count
+from ldpc_tpu_torch.cli import pbrl_lift_floor, pbrl_precode, pbrl_rates
+from ldpc_tpu_torch.cli import quantizer_count, tighten89
 from ldpc_tpu_torch.cli import rate_specific as rs
 from ldpc_tpu_torch.cli import rate_specific_deep as rsd
 from ldpc_tpu_torch.cli import train_wrcq as tw
@@ -252,22 +254,31 @@ FLOOR_TWINS = {"pbrl_bc5": (pbrl_bc5, jax_bc5),
                "ladder_bc4": (ladder_bc4, jax_lb),
                "bc4_refine": (bc4_refine, jax_br),
                "quantizer_count": (quantizer_count, jax_qc),
-               "dde_ladders": (dde_ladders, jax_dl)}
+               "dde_ladders": (dde_ladders, jax_dl),
+               # the section VII-C rate-family programs, whose other tests
+               # are in tests/test_torch_rates_programs.py
+               "pbrl_rates": (pbrl_rates, jax_pr),
+               "tighten89": (tighten89, jax_t89)}
 # options a twin adds besides --device: quantizer_count's deep phase reads
-# rcq-q2's ladder from --design (the program's fixed path by default)
-PLUMBING = {"quantizer_count": {"--design"}}
+# rcq-q2's ladder from --design (the program's fixed path by default),
+# pbrl_rates' deep and train phases the twin's own designs from
+# --design-dir (the committed ones by default)
+PLUMBING = {"quantizer_count": {"--design"}, "pbrl_rates": {"--design-dir"}}
+# programs that run on the host alone: their twins have no command line
+# (tighten89 has none either, but decodes: its twin takes --device)
+HOST_ONLY = ("trapping_spectrum",)
 
 
 @pytest.mark.parametrize("name", list(TWINS) + list(FLOOR_TWINS))
 def test_command_line_is_the_jax_programs_plus_device(name):
     """Each twin's options are its program's plus ``--device`` (and
-    :data:`PLUMBING`'s); a program with no command line
+    :data:`PLUMBING`'s); a host-only program with no command line
     (``trapping_spectrum``, host numpy) has a twin with none."""
     twin, prog = (FLOOR_TWINS[name] if name in FLOOR_TWINS
                   else (TWINS[name], PROGRAMS[name][0]))
     want = _options(prog)
-    assert _options(twin) == (want | {"--device"} | PLUMBING.get(name, set())
-                              if want else set())
+    assert _options(twin) == (set() if name in HOST_ONLY else
+                              want | {"--device"} | PLUMBING.get(name, set()))
 
 
 @pytest.mark.parametrize("name", list(PROGRAMS))
