@@ -71,11 +71,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    ``PosteriorJointTrainer`` with the configurations of
    ``experiments/accuracy_bc3.py`` (B=128, 2 steps, one ``train_epoch``)
    and ``experiments/train_layered_short.py`` (cosine with 8 warmup
-   updates: 3 steps, the first at learning rate 0, so its weights stay);
+   updates: 2 steps, the first at learning rate 0, so its weights stay);
    each step's loss, CUDA-event time and peak memory, the CUDA launches of
-   one layered step (torch.profiler); one B=16 batch stepped twice on the card and
-   on a CPU copy of the flooding decoder, held to float tolerance; the
-   gradient analyzer (``torch.func.vmap``) on 16 frames at 6.5 dB, two
+   one layered step (torch.profiler, in a worker beside phase 13); one
+   B=16 batch stepped twice on the card and on a CPU copy of the flooding
+   decoder, held to float tolerance; the gradient analyzer
+   (``torch.func.vmap``) on 8 frames at 6.5 dB, one
    of its norms recomputed one frame at a time; no K1, K4, K5 or K6
    launch while training (the training route is the engines'); then each
    trained decoder's weights in its fused bf16 twin, K4 (flooding) and K1
@@ -125,12 +126,16 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    their generators; the bench program at B=2x16384 (S=128 a rank) equal
    to the single-device decode; two data-parallel steps within rtol 1e-5
    of one process's. (c) The CLI twins on the card, each timed:
-   ``examples`` (every scenario, in a process beside (b)),
-   ``comprehensive --code peg``,
+   ``examples`` (every scenario, in a process beside (b) and the other
+   CLIs), ``comprehensive --code peg``,
    ``graft_entry`` (``entry()`` and ``dryrun_multichip(1)`` over NCCL), and
    ``generate_images``' comparison at 1024 frames and its DE figure (the DE
    curves are host numpy, computed in the worker process beside phases
    1-12; without matplotlib the figures' data is checked and not drawn).
+   The examples process runs from the phase's start; run() puts phase
+   21's cut trainings and phase 11's traced layered step in a worker
+   process beside (b), (c) and the examples (none of which times what it
+   claims there).
 14. the throughput programs' twins (``ldpc_tpu_torch/cli/``): (a)
    ``python -m ldpc_tpu_torch.cli.bench`` in a process of its own, its last
    line ``bench.py``'s metric line (the name read from ``bench.py``, a rate
@@ -157,7 +162,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    their compaction (64 frames at 6.5 dB, bf16, full output) and timed at
    the campaign's shapes against their bounds; (a) ``deep_fer``'s
    decoders through ``sweep`` (32768-frame waves, budget 2048, 100
-   errors, a 2^23-frame cap): RCQ-bc3-L6 at 6.4, 6.5 and 6.6 dB, RCQ-bc4-L6
+   errors, a 2^22-frame cap): RCQ-bc3-L6 at 6.4, 6.5 and 6.6 dB, RCQ-bc4-L6
    at 6.5, float-MS-L6 at 6.4 ({3, 6}, K1) and the trained flooding
    decoder at 6.4 and 6.5 ({5, 10}, K4); (b) ``deep_fer_trained_l6`` at 6.4
    and 6.5 dB ({2, 6}, K1), each point's frames/s and wave kinds printed
@@ -186,7 +191,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    select and their rates; (c) ``bench_dde``: ``train`` cut to one step
    (no launch), then ``deep`` on the zoo's ``worcq_bc3_layered_t6_dde``
    and the bench decoder (32768-frame waves, budget 4096, 100 errors;
-   RCQ-dde-L6 at 6.4-6.6 dB, the last capped at 2^22 frames, W-ORCQ-dde-L6
+   RCQ-dde-L6 at 6.4-6.6 dB, the last capped at 2^21 frames, W-ORCQ-dde-L6
    at 6.4 and 6.5 dB), each point's frames/s and wave kinds; (d)
    ``train_layered_short``: the four arms cut to one step each (no launch),
    the FER table at 65,536 frames a point, RCQ-L6 and RCQ-L5
@@ -237,7 +242,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    errors); (b) the ``pbrl_lift_floor`` twin's ``run`` at 2.8 and 3.2 dB
    (``simulate_single_snr``, {2, 10}, seed 11); (c) ``pbrl_precode``'s
    random and precoded RCQ arms at 2.6 dB and its OMS arm there capped at
-   2^22 frames (printed), every K1 launch on the precoded code checked
+   2^21 frames (printed), every K1 launch on the precoded code checked
    for zeros at the punctured positions as it reaches the kernel; (d)
    ``trapping_spectrum`` whole (five codes, host numpy, in the worker
    process beside phases 1-11), its spectra and min-b fingerprints equal
@@ -267,11 +272,11 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    (one CN ladder, V2C ladders apart), full and lean: equal bits, success
    and iterations. (a) ``ladder_bc4`` whole (six ladders at 6.4 dB,
    131,072 frames each; the selected one at 6.5 and 6.6 dB, {2, 6},
-   32768-frame waves, budget 2048, capped at 2^22 frames); (b)
+   32768-frame waves, budget 2048, capped at 2^21 frames); (b)
    ``bc4_refine``'s deep phase, arms bc4 and bc3 at 6.0-6.6 dB ({3, 6},
-   budget 4096, 100 errors, capped at 2^22 frames); (c)
+   budget 4096, 100 errors, capped at 2^21 frames); (c)
    ``quantizer_count``'s deep phase (rcq-q2 from the committed design,
-   rcq-q3) at 6.0-6.6 dB (50 errors, capped at 2^22), rcq-q3 (the same
+   rcq-q3) at 6.0-6.6 dB (50 errors, capped at 2^21), rcq-q3 (the same
    decoder and seeded stream as (b)'s bc3, with an error target of 50,
    not 100) equal to bc3 wave by wave over the waves both ran at each
    point, and deep13's p2 at 1.4-2.4 dB ({5,
@@ -312,12 +317,49 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    capped at 2^19 frames, each point beside
    ``experiments/pbrl_rates_ck/<tag>_<arm>.json``; every K1 launch of (a)
    and (b) checked for zeros at the punctured positions as it reaches the
-   kernel; (c) ``train`` at rate 8/9 cut to 2 steps (the engines, no
+   kernel; (c) ``train`` at rate 8/9 cut to 1 step (the engines, no
    launch), each step timed, its checkpoint through ``mk("wrcq-89")`` and
    one wave at 9.0 dB; (d) ``report`` on (b)'s scans, printed. Points as
    in phase 15, Fisher-tested where both the record and this run hold at
    least 20 errors and 20 successes; no K4, K5 or K6 launch; the phase
    must end within 200 s.
+21. the precoded-PBRL training programs' twins
+   (``ldpc_tpu_torch/cli/pbrl_wrcq.py``, ``train_matched.py``,
+   ``pbrl_honest_train.py``) at the programs' code (the precoded PBRL code,
+   k=1032, rate 1/3, 25x37 base at lift 86, n = 3182, base column 0's 86
+   bits punctured), waves (32768), budgets (4096; pbrl_honest_train's
+   8192) and error targets (only SNR points, frame caps, training steps
+   and validation frames cut, each cut printed), only K1 launching: (a)
+   K1 held to its plain version bit for bit in bf16 with the full output
+   at every (decoder, iterations, batch) of ``P21_CHECKS``: the 10-pair
+   DDE ladder ``rcq-dde``, ``rcq-ref2`` (``train_matched``'s designed
+   decoder) and ``rcq-ref4`` (V2C reach 1408.4) at stage 1
+   (T=5, B=32768), stage 2 (T=10, B=4096) and the fallback's whole decode
+   (T=10, B=32768), ``wrcq-ref3`` and ``wrcq-ref3pl`` (the JAX program's
+   trained type-2 [10, 2] / [10, 9] and per-layer [10, 50] / [10, 225]
+   tables, ``cli/pbrl_wrcq_tables.npz``, every row on the per-block
+   route), and ``pbrl_honest_train``'s cut-trained ``worcq``, ``wrcq``
+   (multiplicative), ``worcq-pl`` and its ``rcq-ref3`` at stage 2's
+   B=8192, ``wrcq`` at stage 1 too, each timed against its bound with
+   K1's registers, shared memory, check-state placement and CTAs per SM;
+   (b) on one set of punctured LLRs at stage 2's shape, W-OMS-RCQ with
+   every table zero equal to the plain designed RCQ decoder bit for bit,
+   and ``rcq-ref3`` under design3's V2C ladder equal to it under the
+   uniform one in bits, success and iterations; (c) ``pbrl_wrcq``'s
+   ``dev_fer`` at 2.0 dB for rcq-hand, rcq-ref3it and rcq-ref4 (100
+   errors) and oms6 (capped at 2^22 frames), against
+   ``experiments/pbrl_honest_dev.json``; (d) ``pbrl_honest_train``'s five
+   arms cut to one training step each (the engines, no launch; tables
+   finite, of the decoder's shapes), then its ``dev`` for oms6 and
+   rcq-ref3 at 2.0 dB (budget 8192, capped at 2^22 frames), against
+   ``experiments/pbrl_honest_train_results.json``; (e) ``train_matched``'s
+   four arms cut to one step each (``zinit`` from zero tables), then its
+   ``dev`` for the designed ref2 decoder at 2.0 dB (300 errors), against
+   the honest record's rcq-ref2. Every K1 launch of (c)-(e) is checked
+   for zeros at the punctured positions as it reaches the kernel, and an
+   arm whose waves fall back must have had its whole decode checked.
+   Points as in phase 20; no K4, K5 or K6 launch; the phase must end
+   within 150 s.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -342,6 +384,7 @@ zoo decoder's come from ``zoo/``; the channel LLRs come from seeded CUDA
 generators.
 """
 
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -434,22 +477,19 @@ PB_REF_FER, PB_REF_FRAMES = 54307 / 65536, 65536
 # phase 11: training at full width on the zoo's two operating recipes
 # (zoo/<entry>/spec.json), with fresh weights from the port's generator.
 # Flooding: experiments/accuracy_bc3.py:96-103's configuration, 2 steps
-# (a depth cut: the script's time limit holds phases 1-20; 4 until the
-# bench-code design studies' phase 19 took the time, 3 until the
-# rate-family phase 20 did). The analyzer's batch was 32 frames until
-# phase 19, 16 now; TR_SINGLE of them are recomputed one at a time (4
-# until phase 20).
-# Layered: experiments/train_layered_short.py:85-90's, 3 steps (4 until
-# phase 20); its decay_steps is the run the zoo entry came from (32 epochs
-# x 2048 // 128 batches = 512; the steps taken here are inside the 8-step
-# warmup)
+# (the program trains for epochs; cut for the script's time limit); the
+# analyzer on 8 frames, TR_SINGLE of them recomputed one at a time.
+# Layered: experiments/train_layered_short.py:85-90's, 2 steps (cut for
+# the time limit); its decay_steps is the run the zoo entry came from (32
+# epochs x 2048 // 128 batches = 512; the steps taken here are inside the
+# 8-step warmup)
 TR_CFG = dict(batch_size=128, learning_rate=2e-3, snr_range=(5.5, 7.5),
               early_stop_accuracy=2.0, seed=0)
 TR_LAYERED_CFG = dict(TR_CFG, lr_schedule="cosine", warmup_steps=8,
                       decay_steps=512)
-TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 2, 3, 16
-TR_ANALYZE = dict(num_samples=16, snr_db=6.5)
-TR_SINGLE = 2
+TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 2, 2, 16
+TR_ANALYZE = dict(num_samples=8, snr_db=6.5)
+TR_SINGLE = 1
 # card vs CPU, one step: the loss (a mean) and the accuracy to a few
 # roundings, the gradient norm to the gradients' tolerance (the backward
 # of a gather adds with atomics on the card), the Adam-updated weights
@@ -490,17 +530,16 @@ P14_REPS, P14_FRAMES = 10, 64
 # phase 15: the FER campaign programs' twins (ldpc_tpu_torch/cli/) at their
 # full width (lift 256, their waves, budgets and error targets); only SNR
 # points and frame caps are cut. The deep-FER points (decoder, SNRs); the
-# frame cap is deep_fer.py's 5e7 cut to 2^23: it binds only at RCQ-bc3-L6's
+# frame cap is deep_fer.py's 5e7 cut to 2^22: it binds only at RCQ-bc3-L6's
 # 6.6 dB, where the JAX record's FER 1.85e-6 (100 errors in 54,034,432
-# frames) expects about 15 errors (the cap was 6e7, then 2^24 until the
-# rate-family phase 20 took the time)
+# frames) expects about 8 errors
 P15_DEEP = (("RCQ-bc3-L6", (6.4, 6.5, 6.6)), ("RCQ-bc4-L6", (6.5,)),
             ("float-MS-L6", (6.4,)), ("W-OMS-RCQ-bc3-trained", (6.4, 6.5)))
-P15_L6_SNRS, P15_CAP = (6.4, 6.5), 2 ** 23
+P15_L6_SNRS, P15_CAP = (6.4, 6.5), 2 ** 22
 P15_LIFT, P15_WAVE = 256, 32768
 # accuracy_bc3: the full dev sweep, train_pair cut to one epoch of 128
-# frames (one step a decoder; 2 until phase 19 took the time: the trained
-# decoders are printed, not tested), the waterfall on the JAX run's
+# frames (one step a decoder: the trained decoders are printed, not
+# tested), the waterfall on the JAX run's
 # ladder; fer_parity and the waterfall at 16,384 frames a point
 P15_LADDER, P15_TRAIN, P15_FRAMES = "2-4-6@1.3", dict(epochs=1,
                                                       num_samples=128), 16384
@@ -516,17 +555,16 @@ P15_WAVE_CHECK = ("RCQ-bc3-L6", "W-OMS-RCQ-bc3-trained")
 # (ldpc_tpu_torch/cli/) at their full width: lift 256, the programs'
 # batches, budgets and waves; only SNR points, frame caps and training
 # steps are cut. bench_dde's deep points (decoder, SNRs, frame cap): its
-# 5e7 cap cut to 2^22 at 6.6 dB (the JAX record's FER 1.56e-6 expects
-# about 7 errors there; the cap was 2e7 until the bench-code design
-# studies' phase 19 took the time, then 2^23 until the rate-family phase
-# 20 did); every training cut to one epoch of 128
-# frames (one step; 2 until phase 20 took the time: the cosine schedule
+# 5e7 cap cut to 2^21 at 6.6 dB (the JAX record's FER 1.56e-6 expects
+# about 3 errors there); every
+# training cut to one epoch of 128
+# frames (one step: the cosine schedule
 # keeps the program's 16 updates an epoch). K1 is held to its plain
 # version first at every (decoder,
 # iterations, batch) the part launches: each stage 1 and whole decode at
 # the part's batch, each stage 2 at its budget
 P16_DEEP = (("RCQ-dde-L6", (6.4, 6.5), 5 * 10 ** 7),
-            ("RCQ-dde-L6", (6.6,), 2 ** 22),
+            ("RCQ-dde-L6", (6.6,), 2 ** 21),
             ("W-ORCQ-dde-L6", (6.4, 6.5), 5 * 10 ** 7))
 P16_TRAIN, P16_CHECK_SNR = dict(epochs=1, num_samples=128), 6.5
 # train_layered_short's FER table: the program's frames a point
@@ -539,8 +577,8 @@ P16_EE_TESTED = ("survivors_plain_t1=2_B8192",
 # lift 256, lift 86), batches, waves and budgets; only SNR points, frame
 # caps, epochs and num_samples are cut, each cut printed. train_wrcq and
 # rate_specific run whole (the programs' defaults); train_wrcq_qc9472's
-# simulation cut to 4,096 frames a point (the program's 16,384; 8,192
-# until phase 19 took the time: the 6.0 dB point stops at its errors
+# simulation cut to 4,096 frames a point (the program's 16,384: the
+# 6.0 dB point stops at its errors
 # first, the cut shortens the 6.5 and 7.0 dB points), its
 # training cut to 2 steps an epoch (256 of the
 # program's 1024 frames) for at most 2 epochs (the trainer's accuracy
@@ -559,14 +597,16 @@ P17_CHECK_SNR, P17_LIMIT = 3.2, 180
 # programs' codes, waves, budgets and error targets; only SNR points and
 # frame caps are cut, each cut printed: (a) pbrl_bc5's four arms at 2.6 dB;
 # (b) pbrl_lift_floor's two arms at 2.8 and 3.2 dB; (c) pbrl_precode's
-# RCQ arms at 2.6 dB, its OMS arm there capped at 2^22 frames and printed
+# RCQ arms at 2.6 dB, its OMS arm there capped at 2^21 frames and printed
 # only (the JAX record: 7 errors in 20,021,248 frames); (d)
 # trapping_spectrum whole, in the worker process beside phases 1-11. K1
 # is first held to its plain version at every (decoder, iterations,
 # batch) the campaigns launch, on LLRs drawn at P18_CHECK_SNR; the whole
 # decode of a fallback wave only on the arms that fall back
 P18_BC5_SNRS, P18_LIFT_SNRS, P18_PRECODE_SNRS = (2.6,), (2.8, 3.2), (2.6,)
-P18_OMS_CAP, P18_CHECK_SNR, P18_LIMIT = 2 ** 22, 2.8, 150
+# oms6 capped at P18_OMS_CAP frames (the program's 2e7; the point is
+# printed, not tested)
+P18_OMS_CAP, P18_CHECK_SNR, P18_LIMIT = 2 ** 21, 2.8, 150
 # the three programs' wave and survivor budget
 P18_WAVE, P18_BUDGET = 32768, 4096
 # phase 19: the bench-code design studies' twins (ldpc_tpu_torch/cli/) at
@@ -579,8 +619,7 @@ P18_WAVE, P18_BUDGET = 32768, 4096
 # (printed only: no record); (d) dde_ladders' arms at P19_DDE_SNRS (6.5
 # dB cut) at the program's 262,144 frames. K1 is first held to its plain
 # version at the P19 checks' shapes on LLRs drawn at the part's check SNR.
-# P19_CAP was 2^23 until the rate-family phase 20 took the time
-P19_CAP, P19_DDE_SNRS, P19_LIMIT = 2 ** 22, (6.4,), 240
+P19_CAP, P19_DDE_SNRS, P19_LIMIT = 2 ** 21, (6.4,), 240
 P19_P3 = (2.0, 2 ** 21)
 P19_CHECK_SNR, P19_CHECK13_SNR = 6.4, 2.0
 # dde_ladders' designer calls other than the bc=3 design (phase 12 (a)'s
@@ -607,7 +646,7 @@ P19_REFINED = {3: (DESIGN_QP, DESIGN_VQP, 6.112500000000001),
 # P20_DEEP's arms from each record's first point, every point capped at
 # P20_DEEP_CAP frames (the program's 5e7; the walk's 2e6 cap of its coarse
 # points binds only above it); (c) train at rate 8/9 cut to
-# P20_TRAIN_SAMPLES frames (2 steps of 128; the program's 30 epochs of
+# P20_TRAIN_SAMPLES frames (1 step of 128; the program's 30 epochs of
 # 2048); (d) report on (b)'s scans. K1 is first held to its plain version
 # at every (rate, iterations, batch) the campaigns launch on one arm and at
 # each table kind (P20_CHECKS: stage 1 T=5 at the rate's full wave, stage
@@ -625,7 +664,43 @@ P20_CHECK_SNR = {"89": 7.2, "23": 5.6, "12": 3.9, "13": 1.4}
 P20_T89_SNR, P20_T89_CAP = 9.0, 2 ** 24
 P20_DEEP = (("89", ("oms6", "rcq-pol", "wrcq-89-q4")), ("23", ("rcq-q5",)),
             ("12", ("rcq-q4",)), ("13", ("wrcq-13pl",)))
-P20_DEEP_CAP, P20_TRAIN_SAMPLES, P20_LIMIT = 2 ** 19, 256, 200
+P20_DEEP_CAP, P20_TRAIN_SAMPLES, P20_LIMIT = 2 ** 19, 128, 200
+# phase 21: the precoded-PBRL training programs' twins (ldpc_tpu_torch/cli/
+# pbrl_wrcq.py, train_matched.py, pbrl_honest_train.py) at the programs'
+# code (the precoded PBRL code, k=1032, rate 1/3, 25x37 base at lift 86, n
+# = 3182, base column 0's 86 bits punctured), waves (32768), survivor
+# budgets (4096; pbrl_honest_train's 8192) and error targets; only frame
+# caps, training steps and validation frames are cut, each cut printed. K1
+# is first held to its plain version at every (arm, iterations, batch) of
+# P21_CHECKS, on LLRs drawn at P21_SNR with the 86 bits punctured: stage 1
+# (T=5, B=32768), stage 2 (T=10, the budget) and the fallback's whole
+# decode (T=10, B=32768); pbrl_honest_train's arms (ht/...) after their
+# cut training, decoded with bv=8. (b) the two identities the programs
+# rest on, at stage 2's shape; (c) pbrl_wrcq's P21_DEV arms at 2.0 dB to
+# 100 errors and oms6 capped at P21_OMS_CAP frames (the program's 2e7),
+# Fisher-tested against experiments/pbrl_honest_dev.json (the
+# post-decision-bias-fix record; the pbrl_wrcq_dev*.json records are
+# retracted); (d) pbrl_honest_train's five arms cut-trained, then its dev
+# for oms6 and rcq-ref3 at 2.0 dB capped at P21_OMS_CAP frames (the
+# program's 5e7; rcq-ref3 stops at its 100 errors first), against
+# experiments/pbrl_honest_train_results.json; (e) train_matched's four
+# arms cut-trained, then its dev for the designed (ref2) decoder at 2.0 dB
+# against the honest record's rcq-ref2
+P21_CHECKS = (("rcq-dde", ((5, 32768), (10, 4096), (10, 32768))),
+              ("rcq-ref2", ((5, 32768), (10, 4096), (10, 32768))),
+              ("rcq-ref4", ((5, 32768), (10, 4096), (10, 32768))),
+              ("wrcq-ref3", ((5, 32768), (10, 4096))),
+              ("wrcq-ref3pl", ((5, 32768), (10, 4096), (10, 32768))),
+              ("ht/worcq", ((10, 8192),)),
+              ("ht/wrcq", ((5, 32768), (10, 8192))),
+              ("ht/worcq-pl", ((10, 8192),)),
+              ("ht/rcq-ref3", ((10, 8192),)))
+P21_DEV, P21_SNR = ("rcq-hand", "rcq-ref3it", "rcq-ref4"), 2.0
+P21_OMS_CAP, P21_LIMIT = 2 ** 22, 150
+# a cut-trained arm: one step of P21_SAMPLES frames (the programs' 30
+# epochs of 2048); every cut training's validation set cut to P_VAL frames
+# (the trainer's 640), in phases 15, 16, 17 and 20 too
+P21_SAMPLES, P_VAL = 128, 128
 SMALL_KINDS = [
     ("ms", dict(kind="ms", factor=0.7)),
     ("rcq_bc3_bv8", dict(kind="rcq", bc=3, bv=8)),
@@ -1319,7 +1394,7 @@ def phase10(dev, card):
     for r, d in decs.items():
         line = []
         for B_, x_ in ((PB_B, llr), (PB_BIG, big)):
-            # one timed decode at B=32768 (2 until phase 20 took the time)
+            # one timed decode at B=32768 (cut for the time limit)
             ms = time_ms(lambda: d(x_), 3 if B_ == PB_B else 1)
             line.append(f"B={B_} {ms:.2f} ms, {B_ / ms * 1e3:.1f} cw/s")
         n_k = cuda_launches(lambda: d(llr))
@@ -1449,15 +1524,12 @@ def phase11(dev, card):
         t0 = time.perf_counter()
         rec, first = timed_epoch(tr, steps)
         t1 = time.perf_counter()
-        launches = None
-        # torch.profiler counts the launches of the layered step only:
-        # tracing the flooding step's ~270,600 launches took ~50 s of the
-        # script's time on an H100
-        if name == "layered":
-            batch = tr.sample()
-            launches = cuda_launches(lambda: tr.train_step(*batch),
-                                     cpu=False)
-        t2 = time.perf_counter()
+        # torch.profiler counts the launches of a layered step in a worker
+        # process beside phase 13 (:func:`layered_step_launches`, a count
+        # its neighbours there do not change); tracing the flooding step's
+        # ~270,600 launches took ~50 s of the script's time on an H100
+        launches = "(counted beside phase 13)" if name == "layered" \
+            else None
         if name == "layered" and not all(torch.equal(first[k], w0[k])
                                          for k in w0):
             raise AssertionError("the warmup's first update moved weights")
@@ -1473,8 +1545,7 @@ def phase11(dev, card):
                                  "ones (learning rate 0)"
                                  if name == "layered" else ""))
         print(step_line(name, rec, launches, card) + f"; epoch {t1 - t0:.1f}"
-              f" s" + (f", the profiled step {t2 - t1:.1f} s"
-                       if name == "layered" else ""))
+              f" s")
         decs[name], out[name] = dec, (rec, launches)
 
     # card = CPU: one numpy batch, two steps of the flooding recipe
@@ -1581,6 +1652,24 @@ def uncounted(fn):
         return fn()
     finally:
         set_counts(saved)
+
+
+@contextlib.contextmanager
+def val_cut(frames=P_VAL):
+    """``PosteriorJointTrainer.train`` with at most ``frames`` validation
+    frames while open (the trainer's default 640; the programs pass none):
+    a depth cut, printed by the caller."""
+    import ldpc_tpu_torch as lt
+    real = lt.PosteriorJointTrainer.train
+
+    def train(self, num_samples=3200, val_samples=640, verbose=True):
+        return real(self, num_samples, min(val_samples, frames), verbose)
+
+    lt.PosteriorJointTrainer.train = train
+    try:
+        yield
+    finally:
+        lt.PosteriorJointTrainer.train = real
 
 
 def bench_design(bench_base):
@@ -2066,7 +2155,8 @@ def phase13_gloo(dev, card, dec):
 
 def phase13_cli(dev, card, de, tmp):
     """(c) The CLI twins other than ``examples``, on the card in this
-    process, each timed; a failure raises. They write under ``tmp``."""
+    process beside the ``examples`` process, each timed; a failure raises.
+    They write under ``tmp``."""
     import contextlib
     import importlib.util
     import io
@@ -2125,17 +2215,20 @@ def phase13_cli(dev, card, de, tmp):
         raise AssertionError(f"generate_images: {paths}, FER {fer}")
 
 
-def phase13(dev, card, dec, wave_ms, de):
+def phase13(dev, card, dec, wave_ms, de, beside):
     """Parallel and the CLI twins; returns the mesh path's launches. The
-    ``examples`` process runs beside (b), which times nothing it claims."""
+    ``examples`` process runs from the phase's start; ``beside()`` is
+    called once (a), the phase's timed part, is done, to start other work
+    beside (b) and (c), which time nothing they claim."""
     import re
     import tempfile
 
     t_phase = time.perf_counter()
-    counts = phase13_nccl(dev, card, dec, wave_ms)
-    torch.cuda.empty_cache()
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=root) as tmp:
+        # the examples from the phase's start, beside (a) too: its ≈ 43 s
+        # design scenario is host numpy, and (a) times its three programs
+        # in turns
         t0 = time.perf_counter()
         ex = subprocess.Popen(
             [sys.executable, "-m", "ldpc_tpu_torch.cli.examples",
@@ -2143,7 +2236,16 @@ def phase13(dev, card, dec, wave_ms, de):
             stderr=subprocess.STDOUT, text=True,
             env=dict(os.environ, PYTHONPATH=root))
         try:
+            counts = phase13_nccl(dev, card, dec, wave_ms)
+            torch.cuda.empty_cache()
+            beside()
             phase13_gloo(dev, card, dec)
+            torch.cuda.empty_cache()
+            # the other CLIs beside the examples' last ≈ 25 s (its design
+            # scenario is ≈ 43 s of host numpy): they time nothing they
+            # claim
+            with tempfile.TemporaryDirectory(dir=root) as tmp_cli:
+                phase13_cli(dev, card, de, tmp_cli)
             out = ex.communicate(timeout=900)[0]
         finally:
             if ex.poll() is None:
@@ -2151,13 +2253,11 @@ def phase13(dev, card, dec, wave_ms, de):
                 ex.wait()
         done = dict(re.findall(r"^\[(\w+)\] done in ([\d.]+)s", out, re.M))
         print(f"  (c) python -m ldpc_tpu_torch.cli.examples (every "
-              f"scenario, beside (b)): rc {ex.returncode}, "
-              f"{time.perf_counter() - t0:.1f} s; seconds by scenario "
-              f"{done}")
+              f"scenario, beside (a), (b) and the other CLIs): rc "
+              f"{ex.returncode}, {time.perf_counter() - t0:.1f} s; seconds "
+              f"by scenario {done}")
         if ex.returncode != 0 or len(done) != 16:
             raise AssertionError(f"examples failed:\n{out[-4000:]}")
-        torch.cuda.empty_cache()
-        phase13_cli(dev, card, de, tmp)
     print(f"  launches of the mesh path in (a): {counts}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts
@@ -2491,9 +2591,12 @@ def phase15_accuracy(dev, card, book, record):
     qp = acc.LADDERS[P15_LADDER]
     reset_counts()
     t1 = time.perf_counter()
-    trained = acc.train_pair(code, qc, qp, dev, verbose=False, **P15_TRAIN)
+    with val_cut():
+        trained = acc.train_pair(code, qc, qp, dev, verbose=False,
+                                 **P15_TRAIN)
     c_tr = read_counts()
-    print(f"  (c) train_pair cut to {P15_TRAIN}: final losses " +
+    print(f"  (c) train_pair cut to {P15_TRAIN}, validation to {P_VAL} "
+          f"frames (the trainer's 640): final losses " +
           ", ".join(f"{k} {v[1]:.5f}" for k, v in trained.items()) +
           f", {time.perf_counter() - t1:.1f} s  [{card}]")
     decs = acc.waterfall_decoders(code, qc, qp, trained, dev)
@@ -2787,8 +2890,9 @@ def phase16_dde(dev, card, root, record, book):
         os.chdir(tmp)
         try:
             reset_counts()
-            dec, hist = bench_dde.train(device=dev, verbose=False,
-                                        **P16_TRAIN)
+            with val_cut():
+                dec, hist = bench_dde.train(device=dev, verbose=False,
+                                            **P16_TRAIN)
             c_tr = read_counts()
             saved = lt.load_pretrained(bench_dde.TRAINED_DIR, device=dev)
         finally:
@@ -2799,7 +2903,8 @@ def phase16_dde(dev, card, root, record, book):
         raise AssertionError(f"(c) training launched {c_tr}, or the saved "
                              f"entry differs")
     print(f"  (c) bench_dde train cut to {P16_TRAIN} (the program's 30 "
-          f"epochs of 2048): loss {hist['training_losses'][-1]:.5f}, the "
+          f"epochs of 2048), validation to {P_VAL} frames (the trainer's "
+          f"640): loss {hist['training_losses'][-1]:.5f}, the "
           f"entry reloads equal, no launch, {time.perf_counter() - t0:.1f} "
           f"s  [{card}]")
     with tempfile.TemporaryDirectory(dir=root) as tmp:
@@ -2885,8 +2990,9 @@ def phase16_short(dev, card, root, record, book):
         os.chdir(tmp)
         try:
             reset_counts()
-            cands = short.train_candidates(device=dev, verbose=False,
-                                           **P16_TRAIN)
+            with val_cut():
+                cands = short.train_candidates(device=dev, verbose=False,
+                                               **P16_TRAIN)
             c_tr = read_counts()
             saved = sorted(os.listdir(tmp))
         finally:
@@ -2895,7 +3001,8 @@ def phase16_short(dev, card, root, record, book):
             short.checkpoint_dir(T, pl) for T in (5, 4) for pl in (0, 1)):
         raise AssertionError(f"(d) training launched {c_tr}, saved {saved}")
     print(f"  (d) the four arms trained for {P16_TRAIN} (the program's 24 "
-          f"epochs of 2048): tables " + ", ".join(
+          f"epochs of 2048), validation cut to {P_VAL} frames (the "
+          f"trainer's 640): tables " + ", ".join(
               f"{k} {tuple(d.weights['beta'].shape)}"
               for k, d in cands.items()) +
           f"; no launch; {time.perf_counter() - t0:.1f} s  [{card}]")
@@ -3142,7 +3249,8 @@ def phase17_deep(dev, card, root, record, book):
         try:
             reset_counts()
             t1 = time.perf_counter()
-            hists = rsd.train(decs, P17_RSD_EPOCHS, verbose=False)
+            with val_cut():
+                hists = rsd.train(decs, P17_RSD_EPOCHS, verbose=False)
             torch.cuda.synchronize()
             t_train = time.perf_counter() - t1
             c_tr = read_counts()
@@ -3163,7 +3271,8 @@ def phase17_deep(dev, card, root, record, book):
           f"of {full}): final losses " + ", ".join(
               f"{t} {h['training_losses'][-1]:.5f}" for t, h in hists.items())
           + f"; {steps} steps and {len(rsd.CANDIDATES) * P17_RSD_EPOCHS} "
-          f"640-frame validations in {t_train:.1f} s "
+          f"{P_VAL}-frame validations (the trainer's 640) in "
+          f"{t_train:.1f} s "
           f"({t_train / steps:.1f} s a step with its validation); tables "
           f"saved and reloaded equal; no launch  [{card}]")
     print("  (d) (iteration, base row) pairs on K1's per-block route: " +
@@ -4166,7 +4275,8 @@ def phase20_train(dev, card):
     lt.PosteriorJointTrainer.train_step = timed
     reset_counts()
     try:
-        h = pr.train("89", epochs=1, verbose=False, device=dev)
+        with val_cut():
+            h = pr.train("89", epochs=1, verbose=False, device=dev)
     finally:
         pr.NUM_SAMPLES = saved
         lt.PosteriorJointTrainer.train_step = real
@@ -4196,7 +4306,8 @@ def phase20_train(dev, card):
           f"program's 30 epochs of 2048), loss "
           f"{h['training_losses'][-1]:.5f}; step times "
           f"{[round(1e3 * s, 1) for s in steps]} ms (the first with the "
-          f"warm-up); {t_train:.1f} s with validation  [{card}]")
+          f"warm-up); {t_train:.1f} s with validation (cut to {P_VAL} "
+          f"frames, the trainer's 640)  [{card}]")
     print(f"  (c) wrcq-89 on the trained tables: one wave of {nf:,} frames "
           f"at {P20_T89_SNR} dB, {ne} frame errors, avg iterations "
           f"{it:.4f}, {secs:.2f} s, K1 launches {k1}  [{card}]")
@@ -4279,8 +4390,374 @@ def phase20(dev, card):
     return dict(K1=k1, k1_err=err)
 
 
+def p21_check(dev, card, gen, name, dec, shapes):
+    """K1 against its plain version at ``shapes`` ((iterations, batch)) of
+    one phase 21 arm (:func:`phase16_checks`, the 86 punctured LLRs
+    zero), with the decoder's K1 facts and its (iteration, base row)
+    pairs on the per-block route. Returns (max |d posterior|, {(name, T,
+    B): kernel ms})."""
+    e, m = phase16_checks(dev, card, [
+        (name, dec, T_, B_, False) for T_, B_ in shapes], gen, P21_SNR,
+        tuple(range(dec.qc.lift)))
+    pb = sum(not v for v in shared_pairs(dec).values())
+    shapes = {k: tuple(v.shape) for k, v in dec.weights.items()
+              if v is not None}
+    print(k1_facts(dec, card) + f"; {name}: {dec.spec.kind}, tables "
+          f"{shapes}, {pb} of {dec.max_iterations * dec.qc.mb} (iteration, "
+          f"base row) pairs on the per-block route")
+    torch.cuda.empty_cache()
+    return e, m
+
+
+def phase21_identities(dev, card):
+    """(b): on the same B=4096 punctured LLRs at stage 2's T=10 through K1
+    (full output) in f32 and bf16: ``train_matched``'s W-OMS-RCQ with
+    every table zero against its plain designed (ref2) RCQ decoder, and
+    ``pbrl_wrcq``'s ``rcq-ref3`` (design3's refined V2C ladder) against
+    ``pbrl_honest_train``'s (the uniform 4-8-12). Each pair must agree in
+    bits, success and iterations; the zero tables in f32 also in the
+    posteriors' bit patterns. In bf16 the offset kinds round each v2c to
+    bf16 before the check update where RCQ keeps it in f32, as the JAX
+    kernel does, so there the posteriors may part (counted, printed); the
+    V2C ladder sets the stored posterior's levels, so those part in both
+    types. Not counted as the path's launches."""
+    import ldpc_tpu_torch as lt
+    from ldpc_tpu_torch.cli import pbrl_honest_train as ht
+    from ldpc_tpu_torch.cli import pbrl_wrcq as pw
+    from ldpc_tpu_torch.cli import train_matched as tm
+
+    mk, punct = tm._setup(dev)
+    rcq, zero = mk("rcq"), mk("orcq")
+    zero = zero.replace_weights({k: torch.zeros_like(v)
+                                 for k, v in zero.weights.items()})
+    ref3 = pw.build_arms(("rcq-ref3",), dev)[0]["rcq-ref3"]
+    uni = ht._setup(dev)[0]("rcq")
+    gen = torch.Generator(device=dev).manual_seed(212)
+    x32 = lt.puncture_llr(lt.awgn_llr(gen, torch.zeros(
+        (pw.BUDGET, rcq.code.n), device=dev), P21_SNR), punct)
+    for what, a, b in (("zero W-OMS-RCQ tables = RCQ ref2", zero, rcq),
+                       ("rcq-ref3, design3's V2C ladder = the uniform "
+                        "4-8-12", ref3, uni)):
+        for x in (x32, x32.to(torch.bfloat16)):
+            p = uncounted(lambda: kernel_on(x, a, pw.T, False))
+            q = uncounted(lambda: kernel_on(x, b, pw.T, False))
+            torch.cuda.synchronize()
+            if not (torch.equal(p.bits, q.bits) and
+                    torch.equal(p.success, q.success) and
+                    torch.equal(p.iterations, q.iterations)):
+                raise AssertionError(f"(b) {what} ({x.dtype}): bits, "
+                                     f"success or iterations differ")
+            moved = int((p.posterior != q.posterior).sum())
+            if a is zero and x.dtype == torch.float32:
+                same_bits(f"(b) {what}", p.posterior, q.posterior)
+            print(f"  (b) {what}, {str(x.dtype)[6:]}: bits, success and "
+                  f"iterations equal on B={x.shape[0]} (success "
+                  f"{p.success.float().mean().item():.4f}); {moved:,} "
+                  f"posterior values differ  [{card}]")
+
+
+class P21Steps:
+    """While open: each ``PosteriorJointTrainer``'s initial tables and its
+    steps' seconds, and the trainer's validation cut to P_VAL frames."""
+
+    def __enter__(self):
+        import ldpc_tpu_torch as lt
+        cls = lt.PosteriorJointTrainer
+        self.real = cls.__init__, cls.train_step
+        self.initial, self.steps = [], []
+        self.cut = val_cut()
+        init, step = self.real
+        outer = self
+
+        def watched_init(tr, decoder, *args, **kw):
+            outer.initial.append({k: v.detach().cpu() for k, v in
+                                  decoder.weights.items() if v is not None})
+            outer.steps.append([])
+            init(tr, decoder, *args, **kw)
+
+        def timed(tr, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(tr, *args, **kw)
+            torch.cuda.synchronize()
+            outer.steps[-1].append(time.perf_counter() - t)
+            return out
+
+        cls.__init__, cls.train_step = watched_init, timed
+        self.cut.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import ldpc_tpu_torch as lt
+        self.cut.__exit__(*exc)
+        lt.PosteriorJointTrainer.__init__, \
+            lt.PosteriorJointTrainer.train_step = self.real
+
+
+def p21_train(dev, card, mod, tag):
+    """``mod.train_arm`` of every arm of ``mod.ARMS`` cut to one step of
+    P21_SAMPLES frames (no launch), the validation to P_VAL frames; the
+    saved tables finite with the shapes of the decoder's. Returns ({arm:
+    (saved tables, initial tables)}, the line to print)."""
+    from ldpc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    full, out = mod.NUM_SAMPLES, {}
+    mod.NUM_SAMPLES = P21_SAMPLES
+    reset_counts()
+    try:
+        with P21Steps() as w:
+            losses = {n: mod.train_arm(n, spec, epochs=1, verbose=False,
+                                       device=dev)
+                      for n, spec in mod.ARMS.items()}
+    finally:
+        mod.NUM_SAMPLES = full
+    torch.cuda.synchronize()
+    only_k1(f"({tag}) training", read_counts(), 0)
+    for (name, spec), init, steps in zip(mod.ARMS.items(), w.initial,
+                                         w.steps, strict=True):
+        saved = load_checkpoint(os.path.join(mod.CK_DIR, name))
+        if len(steps) != 1 or saved.keys() != init.keys() or not all(
+                saved[k].shape == init[k].shape and
+                bool(torch.isfinite(saved[k]).all()) for k in saved):
+            raise AssertionError(f"({tag}) {name}: {len(steps)} steps, "
+                                 f"tables {saved}")
+        out[name] = (saved, init)
+    return out, (
+        f"  ({tag}) {mod.__name__.split('.')[-1]} train cut: each arm one "
+        f"step of {P21_SAMPLES} frames (the program's 30 epochs of 2048), "
+        f"validation {P_VAL} frames (the trainer's 640), on the engines "
+        f"(no launch): " + ", ".join(
+            f"{n} loss {losses[n]:.5f} in {1e3 * s[0]:.0f} ms, tables "
+            + str({k: tuple(v.shape) for k, v in out[n][0].items()})
+            for n, s in zip(mod.ARMS, w.steps)) +
+        f"; {time.perf_counter() - t0:.1f} s  [{card}]")
+
+
+def layered_step_launches():
+    """CUDA launches of one training step of the zoo's layered recipe
+    (``ZOO_LAYERED``, phase 11's trainer and configuration) on the card,
+    from torch.profiler (device events only), and the traced step's
+    seconds."""
+    import ldpc_tpu_torch as lt
+    dec = recipe_decoder(ZOO_LAYERED, torch.device("cuda"))
+    tr = lt.PosteriorJointTrainer(dec, lt.TrainingConfig(**TR_LAYERED_CFG))
+    batch = tr.sample()
+    tr.train_step(*batch)   # the warm-up
+    t0 = time.perf_counter()
+    n = cuda_launches(lambda: tr.train_step(*batch), cpu=False)
+    return n, time.perf_counter() - t0
+
+
+def beside_phase13(card):
+    """The work that run() puts in a worker process beside phase 13's (b)
+    and (c), which time nothing they claim: phase 21's cut trainings
+    (:func:`p21_train_all`) and phase 11's launch count of a layered
+    training step (:func:`layered_step_launches`). Returns (the trainings,
+    (launches, seconds))."""
+    return p21_train_all(card), layered_step_launches()
+
+
+def phase11_traced(card, traced):
+    """Phase 11's launch count of a layered step, ``(launches, seconds)``
+    from :func:`layered_step_launches`."""
+    n, secs = traced
+    print(f"  (phase 11) layered: {n} CUDA launches per step "
+          f"(torch.profiler, device events; traced in a worker process "
+          f"beside phase 13), the traced step {secs:.1f} s  [{card}]")
+    if not n:
+        raise AssertionError("the profiler saw no launch of the layered "
+                             "step")
+
+
+def p21_train_all(card, dev="cuda"):
+    """Phase 21's cut trainings, (d) ``pbrl_honest_train``'s five arms and
+    (e) ``train_matched``'s four, on the card in a working directory of
+    their own. Returns {tag: ({arm: (saved tables, initial tables)},
+    line)}."""
+    import tempfile
+
+    from ldpc_tpu_torch.cli import pbrl_honest_train as ht
+    from ldpc_tpu_torch.cli import train_matched as tm
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.chdir(tmp)
+        try:
+            return {tag: p21_train(torch.device(dev), card, mod, tag)
+                    for tag, mod in (("d", ht), ("e", tm))}
+        finally:
+            os.chdir(cwd)
+
+
+def p21_sims(tag, book, calls, names, refs, checks):
+    """Each watched call of (c)-(e) beside its record point ``refs[name]``
+    ((errors, frames)): Fisher-tested where both hold at least P15_MIN
+    errors and successes. Fails when a wave of an arm whose whole decode
+    was not checked (``checks``: {name: shapes}) fell back."""
+    for name, call in zip(names, calls, strict=True):
+        p20_point(book, tag, name, call, refs[name])
+        whole = (call[0].max_iterations, call[2].wave_size) in checks.get(
+            name, ())
+        if call[3].get("fallback") and not whole:
+            raise AssertionError(f"({tag}) {name} fell back unchecked: "
+                                 f"{call[3]}")
+
+
+def phase21(dev, card, trained):
+    """The precoded-PBRL training twins at the programs' widths; returns
+    K1's launches and the largest posterior difference. ``trained`` is
+    :func:`p21_train_all`'s result (the script runs it beside phase
+    13)."""
+    import tempfile
+
+    from ldpc_tpu_torch.cli import pbrl_honest_train as ht
+    from ldpc_tpu_torch.cli import pbrl_wrcq as pw
+    from ldpc_tpu_torch.cli import train_matched as tm
+    from ldpc_tpu_torch.decode import fused
+
+    print("[21 precoded-PBRL training twins]")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    recs = {}
+    for prog in ("pbrl_honest_dev", "pbrl_honest_train_results"):
+        with open(os.path.join(root, "experiments", f"{prog}.json")) as f:
+            recs[prog] = {k: (v["2.0"]["errors"], v["2.0"]["frames"])
+                          for k, v in json.load(f).items()}
+    checks = dict(P21_CHECKS)
+    book, err = FisherBook(card), 0.0
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.chdir(tmp)
+        try:
+            # (a) the pbrl_wrcq arms; the trained ones install the JAX
+            # program's tables (pbrl_wrcq_tables.npz) into the working
+            # directory
+            arms, punct = pw.build_arms(
+                tuple(n for n, _ in P21_CHECKS if "/" not in n), dev)
+            with np.load(pw.TABLES) as f:
+                for name in ("wrcq-ref3", "wrcq-ref3pl"):
+                    ck = f"orcq_{name[5:]}"
+                    if not all(torch.equal(arms[name].weights[k].cpu(),
+                                           torch.from_numpy(f[f"{ck}/{k}"]))
+                               for k in ("beta", "alpha")):
+                        raise AssertionError(f"(a) {name} does not decode "
+                                             f"with {ck}'s tables")
+            print(f"  (a) wrcq-ref3 and wrcq-ref3pl decode with the JAX "
+                  f"program's orcq_ref3 and orcq_ref3pl tables "
+                  f"(pbrl_wrcq_tables.npz); rcq-dde's CN ladder (one pair "
+                  f"an iteration) {pw._ladder('dde')[0]}; rcq-ref4's V2C "
+                  f"ladder {pw._ladder('ref4')[1]}")
+            for name, dec in arms.items():
+                e, _ = p21_check(dev, card, gen, name, dec, checks[name])
+                err = max(err, e)
+            del arms
+            phase21_identities(dev, card)
+            print(f"  (a, b) {time.perf_counter() - t_phase:.1f} s")
+            # (d) training first: its arms' K1 checks need the tables
+            (ht_tabs, line_d), (tm_tabs, line_e) = trained["d"], trained["e"]
+            print(line_d)
+            print(line_e)
+            if any(v.any() for v in tm_tabs["zinit"][1].values()) or any(
+                    v.any() for v in ht_tabs["worcq-low"][1].values()):
+                raise AssertionError("(e) zinit / (d) worcq-low did not "
+                                     "start from zero tables")
+            print("  (d, e) zinit and worcq-low start from all-zero tables")
+            mk, _ = ht._setup(dev)
+            for name, shapes in P21_CHECKS:
+                if name.startswith("ht/"):
+                    arm = name[3:]
+                    if arm == "rcq-ref3":
+                        dec = mk("rcq")
+                    else:
+                        spec = ht.ARMS[arm]
+                        dec = mk(spec["kind"], per_layer=spec["per_layer"],
+                                 weights=ht_tabs[arm][0])
+                    e, _ = p21_check(dev, card, gen, name, dec, shapes)
+                    err = max(err, e)
+            print(f"  K1 checks and training "
+                  f"{time.perf_counter() - t_phase:.1f} s")
+            seen, real = p20_punctured(dev, {mk("rcq").code.n: punct})
+            try:
+                t0 = time.perf_counter()
+                reset_counts()
+                with SimWatch() as w:
+                    pw.dev_fer(snrs=(P21_SNR,), which=P21_DEV,
+                               out_path="dev.json", verbose=False, device=dev)
+                    pw.dev_fer(frames=P21_OMS_CAP, snrs=(P21_SNR,),
+                               which=("oms6",), out_path="dev_oms6.json",
+                               verbose=False, device=dev)
+                torch.cuda.synchronize()
+                k_c = w.launches()
+                only_k1("(c)", read_counts(), k_c)
+                print(f"  (c) pbrl_wrcq dev cut: {P21_SNR} dB of (2.0, 2.4); "
+                      f"oms6 capped at {P21_OMS_CAP:,} frames (the program's "
+                      f"20,000,000); waves {pw.WAVE}, budget {pw.BUDGET}, 100 "
+                      f"errors; K1 launches {k_c}; "
+                      f"{time.perf_counter() - t0:.1f} s")
+                p21_sims("c", book, w.calls, P21_DEV + ("oms6",),
+                         recs["pbrl_honest_dev"], checks)
+                t0 = time.perf_counter()
+                reset_counts()
+                with SimWatch() as w:
+                    ht.dev((), frames=P21_OMS_CAP, snrs=(P21_SNR,),
+                           verbose=False, device=dev)
+                torch.cuda.synchronize()
+                k_d = w.launches()
+                only_k1("(d)", read_counts(), k_d)
+                print(f"  (d) pbrl_honest_train dev cut: {P21_SNR} dB of "
+                      f"(2.0, 2.4), the trained arms left out, every point "
+                      f"capped at {P21_OMS_CAP:,} frames (the program's "
+                      f"50,000,000); waves {ht.WAVE}, budget {ht.BUDGET}, "
+                      f"100 errors; K1 launches {k_d}; "
+                      f"{time.perf_counter() - t0:.1f} s")
+                p21_sims("d", book, w.calls, ("oms6", "ht/rcq-ref3"), {
+                    "oms6": recs["pbrl_honest_train_results"]["oms6"],
+                    "ht/rcq-ref3": recs["pbrl_honest_train_results"][
+                        "rcq-ref3"]}, checks)
+                t0 = time.perf_counter()
+                reset_counts()
+                with SimWatch() as w:
+                    res = tm.dev((), verbose=False, device=dev)
+                torch.cuda.synchronize()
+                k_e = w.launches()
+                only_k1("(e)", read_counts(), k_e)
+                print(f"  (e) train_matched dev: the designed decoder (rcq-"
+                      f"ref2) at {P21_SNR} dB, the trained arms left out; "
+                      f"{tm.MIN_FRAMES} frames at least, 300 errors; K1 "
+                      f"launches {k_e}; {time.perf_counter() - t0:.1f} s")
+                p21_sims("e", book, w.calls, ("designed",), {
+                    "designed": recs["pbrl_honest_dev"]["rcq-ref2"]},
+                    checks)
+                if list(res) != ["designed"]:
+                    raise AssertionError(f"(e) {list(res)}")
+            finally:
+                fused._launch = real
+        finally:
+            os.chdir(cwd)
+    nonzero, k1 = int(seen["nonzero"]), k_c + k_d + k_e
+    print(f"  (c-e) {seen['calls']} K1 launches on the precoded code, "
+          f"{nonzero} nonzero LLRs at its 86 punctured positions")
+    if nonzero or seen["calls"] != k1:
+        raise AssertionError("a punctured LLR reached K1 nonzero, or a "
+                             "launch went uncounted")
+    secs = time.perf_counter() - t_phase
+    print(f"  {book.tested} points Fisher-tested against the JAX records; "
+          f"K1 launches in phase 21 {k1} (c {k_c}, d {k_d}, e {k_e}), no "
+          f"K4, K5 or K6; phase {secs:.1f} s (limit {P21_LIMIT} s)")
+    if book.failed:
+        raise AssertionError(f"points off the JAX records (p < {P15_P}): "
+                             f"{book.failed}")
+    if secs > P21_LIMIT:
+        raise AssertionError(f"phase 21 took {secs:.1f} s, over "
+                             f"{P21_LIMIT} s")
+    return dict(K1=k1, k1_err=err)
+
+
 def run(design, de, spectrum):
-    """Phases 1-20; ``design``, ``de`` and ``spectrum`` are the result
+    """Phases 1-21; ``design``, ``de`` and ``spectrum`` are the result
     handles of :func:`bench_design`, :func:`de_data` and
     :func:`spectrum_data` running in a worker process."""
     import ldpc_tpu_torch as lt
@@ -4555,7 +5032,20 @@ def run(design, de, spectrum):
     torch.cuda.empty_cache()
     p12_launches, p12_err = phase12(dev, card, design)
     torch.cuda.empty_cache()
-    p13 = phase13(dev, card, dec, 1e3 * secs / n_timed, de)
+    # phase 21's cut trainings and phase 11's traced layered step run in a
+    # worker process beside phase 13's untimed (b) and (c); leaving the
+    # pool frees the worker's share of the card
+    with multiprocessing.get_context("spawn").Pool(1) as side:
+        work = []
+        p13 = phase13(dev, card, dec, 1e3 * secs / n_timed, de, lambda: (
+            work.append(side.apply_async(beside_phase13, (card,)))))
+        t0 = time.perf_counter()
+        p21_trained, traced = work[0].get(timeout=900)
+    print(f"  phase 21's nine cut trainings and phase 11's traced layered "
+          f"step ran in a worker process beside phase 13's (b) and (c); "
+          f"waited {time.perf_counter() - t0:.1f} s for them after phase "
+          f"13")
+    phase11_traced(card, traced)
     torch.cuda.empty_cache()
     p14 = phase14(dev, card)
     torch.cuda.empty_cache()
@@ -4570,6 +5060,8 @@ def run(design, de, spectrum):
     p19 = phase19(dev, card, design.get()[:3])
     torch.cuda.empty_cache()
     p20 = phase20(dev, card)
+    torch.cuda.empty_cache()
+    p21 = phase21(dev, card, p21_trained)
 
     print(f"[script] {time.perf_counter() - T_START:.1f} s from the start")
     print(card)
@@ -4581,10 +5073,10 @@ def run(design, de, spectrum):
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
         "launches": (launches + p12_launches + p13["K1"] + p14["K1"] +
                      p15["K1"] + p16["K1"] + p17["K1"] + p18["K1"] +
-                     p19["K1"] + p20["K1"]),
+                     p19["K1"] + p20["K1"] + p21["K1"]),
         "max_abs_err": max(max_err, p12_err, p14["k1_err"], p15["k1_err"],
                            p16["k1_err"], p17["k1_err"], p18["k1_err"],
-                           p19["k1_err"], p20["k1_err"]),
+                           p19["k1_err"], p20["k1_err"], p21["k1_err"]),
         "ms": times[256][0],
         "plain_ms": times[256][1],
         "bound_ms": k1_bound[0],

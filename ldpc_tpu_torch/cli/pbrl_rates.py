@@ -263,14 +263,15 @@ def polish(tag: str, verbose: bool = True, design_dir=None):
     return out
 
 
-def install_tables(ck_dir: str = CK_DIR, names=None) -> list:
-    """Write the JAX program's trained tables (:data:`TABLES`) as
-    ``save_checkpoint`` directories ``ck_dir/<checkpoint>``, each through
-    ``weights_from_numpy``: the checkpoints ``names`` (default all eight)
-    that are not there yet (a table ``train`` wrote stays). Returns the
-    names written."""
+def install_tables(ck_dir: str = CK_DIR, names=None,
+                   tables: str = TABLES) -> list:
+    """Write a JAX program's trained tables (``tables``, by default this
+    program's :data:`TABLES`) as ``save_checkpoint`` directories
+    ``ck_dir/<checkpoint>``, each through ``weights_from_numpy``: the
+    checkpoints ``names`` (default all in the file) that are not there yet
+    (a table ``train`` wrote stays). Returns the names written."""
     done = []
-    with np.load(TABLES) as f:
+    with np.load(tables) as f:
         have = sorted({k.split("/")[0] for k in f.files})
         for name in have if names is None else names:
             path = os.path.join(ck_dir, name)

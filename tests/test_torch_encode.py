@@ -112,10 +112,9 @@ def test_simulate_awgn_channel_matches_jax(monkeypatch):
     ``awgn_llr`` on the same generator."""
     bits = np.random.default_rng(2).integers(0, 2, size=(4, 24))
     snr = 3.0
-    monkeypatch.setattr(tchannel.torch, "randn",
-                        lambda shape, **kw: torch.zeros(
-                            shape, dtype=kw.get("dtype"),
-                            device=kw.get("device")))
+    monkeypatch.setattr(tchannel, "standard_normal",
+                        lambda gen, shape, device: torch.zeros(
+                            shape, dtype=torch.float32, device=device))
     monkeypatch.setattr(jchannel.jax.random, "normal",
                         lambda key, shape, dtype: jnp.zeros(shape, dtype))
     got = lt.simulate_awgn_channel(torch.Generator().manual_seed(0),

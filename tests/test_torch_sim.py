@@ -64,11 +64,16 @@ def _program(stage1, stage2, llr):
 def test_compacting_wave_equals_two_checkpoint_program(layered):
     dec = _decoder(layered, lean=True)
     stage1, stage2 = lt.decode.two_checkpoint_stages(dec, T1)
-    for budget, snr, path in ((192, 2.5, "compacted"),
-                              (4, 1.0, "fallback")):
-        wave = _build_wave(dec, _config(early_exit_iters=T1,
-                                        survivor_budget=budget))
-        llr = wave.llr(torch.Generator().manual_seed(33), snr)
+    for snr, path in ((2.5, "compacted"), (1.0, "fallback")):
+        llr = _build_wave(dec, _config()).llr(
+            torch.Generator().manual_seed(33), snr)
+        # each path at its edge: a budget that holds exactly the draw's
+        # survivors, or one fewer
+        n_surv = int((~stage1(llr, dec.weights).success).sum())
+        assert n_surv > 1
+        wave = _build_wave(dec, _config(
+            early_exit_iters=T1,
+            survivor_budget=n_surv - (path == "fallback")))
         got = wave.counts(llr)
         assert dict(wave.kinds) == {path: 1}
         assert got == _program(lambda x: stage1(x, dec.weights),

@@ -97,6 +97,32 @@ def test_awgn_llr_reproducible_and_distributed():
         np.array([[1, 0, 1, 1, 0, 1]] * 2, np.float32))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_normal_draws_are_jax_random_normals_transform(seed):
+    """The channel's Gaussian draws from given random bits equal
+    ``jax.random.normal``'s from the same bits (its top 23 of 32): the
+    same 2^-22 uniform grid on [nextafter(-1, 0), 1) through sqrt(2)
+    erfinv, within the two erfinv approximations' rounding (up to ≈ 5e-6
+    relative, in the tails)."""
+    import jax
+
+    from ldpc_tpu_torch.channel import normal_from_bits, standard_normal
+
+    key = jax.random.PRNGKey(seed)
+    shape = (64, 1024)
+    bits = np.asarray(jax.random.bits(key, shape, np.uint32)) >> 9
+    want = np.asarray(jax.random.normal(key, shape, np.float32))
+    got = normal_from_bits(torch.from_numpy(bits.astype(np.int32)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=2e-7)
+    extremes = normal_from_bits(torch.tensor([0, 2 ** 23 - 1]))
+    assert -5.5 < extremes[0] < -5.3 and 5.0 < extremes[1] < 5.3
+    draws = standard_normal(torch.Generator().manual_seed(seed),
+                               (256, 1024), "cpu")
+    assert abs(draws.mean().item()) < 0.01
+    assert abs(draws.std().item() - 1.0) < 0.01
+
+
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import ldpc_tpu_torch, ldpc_tpu_torch.decode._build, "

@@ -41,6 +41,8 @@ import torch
 import experiments.bc4_refine as jax_br
 import experiments.dde_ladders as jax_dl
 import experiments.floor_is as jax_fi
+import experiments.pbrl_honest_train as jax_ht
+import experiments.pbrl_wrcq as jax_pw
 import experiments.ladder_bc4 as jax_lb
 import experiments.pbrl_bc5 as jax_bc5
 import experiments.pbrl_rates as jax_pr
@@ -50,6 +52,7 @@ import experiments.quantizer_count as jax_qc
 import experiments.rate_specific as jax_rs
 import experiments.rate_specific_deep as jax_rsd
 import experiments.tighten89 as jax_t89
+import experiments.train_matched as jax_tm
 import experiments.train_wrcq as jax_tw
 import experiments.train_wrcq_qc9472 as jax_tq
 import experiments.trapping_spectrum as jax_ts
@@ -63,6 +66,7 @@ from ldpc_tpu.decode.engine import decode_batch_layered as jax_layered
 from ldpc_tpu.sim import SimulationResult as JaxSimulationResult
 from ldpc_tpu_torch.cli import bc4_refine, dde_ladders, ladder_bc4
 from ldpc_tpu_torch.cli import deep_fer, floor_is, pbrl_bc5
+from ldpc_tpu_torch.cli import pbrl_honest_train, pbrl_wrcq, train_matched
 from ldpc_tpu_torch.cli import pbrl_lift_floor, pbrl_precode, pbrl_rates
 from ldpc_tpu_torch.cli import quantizer_count, tighten89
 from ldpc_tpu_torch.cli import rate_specific as rs
@@ -258,12 +262,18 @@ FLOOR_TWINS = {"pbrl_bc5": (pbrl_bc5, jax_bc5),
                # the section VII-C rate-family programs, whose other tests
                # are in tests/test_torch_rates_programs.py
                "pbrl_rates": (pbrl_rates, jax_pr),
-               "tighten89": (tighten89, jax_t89)}
+               "tighten89": (tighten89, jax_t89),
+               # the precoded-PBRL training programs, whose other tests are
+               # in tests/test_torch_trio_programs.py
+               "pbrl_wrcq": (pbrl_wrcq, jax_pw),
+               "train_matched": (train_matched, jax_tm),
+               "pbrl_honest_train": (pbrl_honest_train, jax_ht)}
 # options a twin adds besides --device: quantizer_count's deep phase reads
 # rcq-q2's ladder from --design (the program's fixed path by default),
-# pbrl_rates' deep and train phases the twin's own designs from
-# --design-dir (the committed ones by default)
-PLUMBING = {"quantizer_count": {"--design"}, "pbrl_rates": {"--design-dir"}}
+# pbrl_rates' deep and train phases and pbrl_wrcq's dde ladder the twin's
+# own designs from --design-dir (the committed ones by default)
+PLUMBING = {"quantizer_count": {"--design"}, "pbrl_rates": {"--design-dir"},
+            "pbrl_wrcq": {"--design-dir"}}
 # programs that run on the host alone: their twins have no command line
 # (tighten89 has none either, but decodes: its twin takes --device)
 HOST_ONLY = ("trapping_spectrum",)
