@@ -32,7 +32,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    checkpoints, survivor budget 8192): both the overflow fallback and the
    compacted wave must run, only K4 may launch, and the FER must fall in
    bands around the JAX package's curve for this decoder
-   (``experiments/accuracy_bc3_results.json``); the first wave's first 64
+   (``experiments/accuracy_bc3_results.json``); the first wave's first 8
    frames are checked against the plain path on the CPU;
 7. K5/K6 vs plain: the row and column kernels against their plain
    versions, bit for bit, single launches on every row and column of the
@@ -74,9 +74,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    updates: 2 steps, the first at learning rate 0, so its weights stay);
    each step's loss, CUDA-event time and peak memory, the CUDA launches of
    one layered step (torch.profiler, in a worker beside phase 13); one
-   B=16 batch stepped twice on the card and on a CPU copy of the flooding
+   B=8 batch stepped twice on the card and on a CPU copy of the flooding
    decoder, held to float tolerance; the gradient analyzer
-   (``torch.func.vmap``) on 8 frames at 6.5 dB, one
+   (``torch.func.vmap``) on 4 frames at 6.5 dB, one
    of its norms recomputed one frame at a time; no K1, K4, K5 or K6
    launch while training (the training route is the engines'); then each
    trained decoder's weights in its fused bf16 twin, K4 (flooding) and K1
@@ -314,7 +314,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    ``pbrl_rates``' deep scan (rate 8/9: ``oms6``, ``rcq-pol``,
    ``wrcq-89-q4``; 2/3 ``rcq-q5``; 1/2 ``rcq-q4``; 1/3 ``wrcq-13pl``)
    from each record's first point with the program's walk, every point
-   capped at 2^19 frames, each point beside
+   capped at 2^18 frames, each point beside
    ``experiments/pbrl_rates_ck/<tag>_<arm>.json``; every K1 launch of (a)
    and (b) checked for zeros at the punctured positions as it reaches the
    kernel; (c) ``train`` at rate 8/9 cut to 1 step (the engines, no
@@ -360,6 +360,46 @@ Phases, each printing its own line; any failure raises and exits non-zero:
    arm whose waves fall back must have had its whole decode checked.
    Points as in phase 20; no K4, K5 or K6 launch; the phase must end
    within 150 s.
+22. the PBRL V2C/CN probe programs' twins
+   (``ldpc_tpu_torch/cli/pbrl_bv10.py``, ``pbrl_cn_probe.py``,
+   ``pbrl_vqp_sweep.py``, ``pbrl_vqp_gamma.py``) at the programs' code
+   (phase 21's precoded PBRL code), waves (32768), budget (4096) and error
+   target (100; only SNR points and frame caps cut, each cut printed),
+   only K1 launching: (a) K1 held to its plain version bit for bit in
+   bf16 with the full output at every (arm, iterations, batch) of
+   ``P22_CHECKS``: the uniform bv=12 V2C quantizer (M = 2047), the power
+   law at gamma 2.0 and 1.5 (the 128-entry level table) and bc=5's closed
+   form with CN_REF3 at stage 1 (T=5, B=32768), stage 2 (T=10, B=4096)
+   and the fallback's whole decode (T=10, B=32768), the three CN ladders
+   at stage 2, each timed against its bound with K1's registers, shared
+   memory, check-state placement and CTAs per SM; (b) on one stage-1 and
+   one stage-2 wave, the nine bc=4 CN_REF3 arms equal to ``pbrl_wrcq``'s
+   rcq-ref3 and bc5_vr96 equal to bc5_bv10 in bits, success and
+   iterations (only the posterior passes through the V2C quantizer; the
+   posterior values apart printed); (c) each twin's ``main`` at 2.0 dB
+   (one arm of the rcq-ref3 class at 2.4 dB too), every point capped at
+   2^21 frames: the rcq-ref3 class Fisher-tested against
+   ``experiments/pbrl_honest_dev.json``'s rcq-ref3, the other four
+   decoders against ``ldpc_tpu_torch/cli/pbrl_probe_reference.json``
+   (the JAX package's counts on the CPU,
+   ``tests/jax_reference_probes.py``); the programs' committed records
+   predate the decision-bias fix and are printed beside, marked
+   retracted, never tested. Every K1 launch of (c) is checked for zeros
+   at the punctured positions; an arm whose waves fall back must have had
+   its whole decode checked; all 15 points tested at p >= 1e-3; no K4,
+   K5 or K6 launch; the phase must end within 120 s.
+
+Order: phase 10 launches none of the library's kernels, so it runs on the
+card while nvcc builds (phase 2), and its engines' times are taken beside
+the build's host load. Phases 14-22 run in three processes:
+15, 19 and then 20 in the script's own, 14, 16 and 17 in one worker
+process and 18, 21 and 22 in another (``LANES``); phase 20, the one
+nearest its limit when all three run, starts when the lanes are about
+done. The workers' output is printed after phase 20's, and a phase
+failing in a worker fails the script. So the times printed in phases
+14-22 are taken beside the other lanes' work on the same card and the
+same host; the kernels' ``ms`` in the JSON record come from phases 3, 5
+and 7, which run alone.
 
 Each kernel's ``bound_ms`` is the larger of its compulsory bytes (inputs
 read once, outputs written once) over 3.35 TB/s, the H100 SXM's published
@@ -384,6 +424,7 @@ zoo decoder's come from ``zoo/``; the channel LLRs come from seeded CUDA
 generators.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -418,6 +459,9 @@ BENCH_KW = dict(
 ZOO_ENTRY, SIM_T1, SIM_WAVE, SIM_BUDGET = "worcq_bc3_qc9472", 6, 32768, 8192
 # phase 3: the zoo's trained layered decoder on the bench code
 ZOO_LAYERED = "worcq_bc3_layered_t6"
+# phase 6's frames held to the plain path on the CPU (≈ 1.4 s a frame of
+# host time for the zoo's flooding decoder at lift 256, T=10)
+SIM_CPU = 8
 SIM_CONFIG = dict(snr_range=(6.0, 6.5), snr_step=0.25, max_frames=131072,
                   max_errors=2000, min_frames=16384, wave_size=SIM_WAVE,
                   early_exit_iters=SIM_T1, survivor_budget=SIM_BUDGET,
@@ -478,7 +522,7 @@ PB_REF_FER, PB_REF_FRAMES = 54307 / 65536, 65536
 # (zoo/<entry>/spec.json), with fresh weights from the port's generator.
 # Flooding: experiments/accuracy_bc3.py:96-103's configuration, 2 steps
 # (the program trains for epochs; cut for the script's time limit); the
-# analyzer on 8 frames, TR_SINGLE of them recomputed one at a time.
+# analyzer on 4 frames, TR_SINGLE of them recomputed one at a time.
 # Layered: experiments/train_layered_short.py:85-90's, 2 steps (cut for
 # the time limit); its decay_steps is the run the zoo entry came from (32
 # epochs x 2048 // 128 batches = 512; the steps taken here are inside the
@@ -487,8 +531,8 @@ TR_CFG = dict(batch_size=128, learning_rate=2e-3, snr_range=(5.5, 7.5),
               early_stop_accuracy=2.0, seed=0)
 TR_LAYERED_CFG = dict(TR_CFG, lr_schedule="cosine", warmup_steps=8,
                       decay_steps=512)
-TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 2, 2, 16
-TR_ANALYZE = dict(num_samples=8, snr_db=6.5)
+TR_STEPS, TR_LAYERED_STEPS, TR_CPU_B = 2, 2, 8
+TR_ANALYZE = dict(num_samples=4, snr_db=6.5)
 TR_SINGLE = 1
 # card vs CPU, one step: the loss (a mean) and the accuracy to a few
 # roundings, the gradient norm to the gradients' tolerance (the backward
@@ -664,7 +708,7 @@ P20_CHECK_SNR = {"89": 7.2, "23": 5.6, "12": 3.9, "13": 1.4}
 P20_T89_SNR, P20_T89_CAP = 9.0, 2 ** 24
 P20_DEEP = (("89", ("oms6", "rcq-pol", "wrcq-89-q4")), ("23", ("rcq-q5",)),
             ("12", ("rcq-q4",)), ("13", ("wrcq-13pl",)))
-P20_DEEP_CAP, P20_TRAIN_SAMPLES, P20_LIMIT = 2 ** 19, 128, 200
+P20_DEEP_CAP, P20_TRAIN_SAMPLES, P20_LIMIT = 2 ** 18, 128, 200
 # phase 21: the precoded-PBRL training programs' twins (ldpc_tpu_torch/cli/
 # pbrl_wrcq.py, train_matched.py, pbrl_honest_train.py) at the programs'
 # code (the precoded PBRL code, k=1032, rate 1/3, 25x37 base at lift 86, n
@@ -697,6 +741,47 @@ P21_CHECKS = (("rcq-dde", ((5, 32768), (10, 4096), (10, 32768))),
               ("ht/rcq-ref3", ((10, 8192),)))
 P21_DEV, P21_SNR = ("rcq-hand", "rcq-ref3it", "rcq-ref4"), 2.0
 P21_OMS_CAP, P21_LIMIT = 2 ** 22, 150
+# phase 22: the PBRL V2C/CN probe programs' twins (ldpc_tpu_torch/cli/
+# pbrl_bv10.py, pbrl_cn_probe.py, pbrl_vqp_sweep.py, pbrl_vqp_gamma.py) on
+# phase 21's code, waves (32768), budget (4096) and error target (100);
+# only SNR points and frame caps are cut, each cut printed. K1 is first
+# held to its plain version at every (arm, iterations, batch) of
+# P22_CHECKS, on LLRs drawn at P22_SNR with the 86 bits punctured: the new
+# V2C quantizers (uniform bv=12, M = 2047; power law gamma 2.0 and 1.5,
+# the 128-entry table) and bc=5's closed form with CN_REF3 at stage 1 (T=5,
+# B=32768), stage 2 (T=10, B=4096) and the fallback's whole decode (T=10,
+# B=32768), the three CN ladders at stage 2. (b) the V2C-neutral
+# identities on one stage-1 and one stage-2 wave: P22_REF3_CLASS's nine
+# bc=4 CN_REF3 arms decode as pbrl_wrcq's rcq-ref3, bc5_vr96 as bc5_bv10.
+# (c) each twin's main at P22_SNR capped at P22_CAP frames (the programs'
+# 2e7), 2.4 dB kept for one arm of the rcq-ref3 class (P22_BOTH): the
+# rcq-ref3 class Fisher-tested against experiments/pbrl_honest_dev.json's
+# rcq-ref3, the four other decoders against
+# ldpc_tpu_torch/cli/pbrl_probe_reference.json (tests/
+# jax_reference_probes.py, the JAX package on the CPU); the programs'
+# committed records predate the decision-bias fix and are printed, marked
+# retracted, never tested
+P22_CHECKS = (("pbrl_bv10/bc4_bv12", ((5, 32768), (10, 4096), (10, 32768))),
+              ("pbrl_bv10/bc5_bv10", ((5, 32768), (10, 4096), (10, 32768))),
+              ("pbrl_vqp_gamma/bc4_g2.0_C300",
+               ((5, 32768), (10, 4096), (10, 32768))),
+              ("pbrl_vqp_gamma/bc4_g1.5_ref3C",
+               ((5, 32768), (10, 4096), (10, 32768))),
+              ("pbrl_cn_probe/cn_8.5-16-16", ((10, 4096),)),
+              ("pbrl_cn_probe/cn_6-12-12", ((10, 4096),)),
+              ("pbrl_cn_probe/cn_8.5-12-16", ((10, 4096),)))
+P22_REF3_CLASS = ("pbrl_bv10/bc4_bv10", "pbrl_bv10/bc4_bv12",
+                  "pbrl_vqp_sweep/bc4_vr48", "pbrl_vqp_sweep/bc4_vr96",
+                  "pbrl_vqp_sweep/bc4_vr192", "pbrl_vqp_sweep/bc4_vref3",
+                  "pbrl_vqp_gamma/bc4_g1.5_C300",
+                  "pbrl_vqp_gamma/bc4_g2.0_C300",
+                  "pbrl_vqp_gamma/bc4_g1.5_ref3C")
+P22_BC5_CLASS = ("pbrl_bv10/bc5_bv10", "pbrl_vqp_sweep/bc5_vr96")
+P22_BOTH, P22_SNR, P22_HI = "pbrl_bv10/bc4_bv12", 2.0, 2.4
+P22_CAP, P22_LIMIT = 2 ** 21, 120
+P22_WAVE, P22_BUDGET = 32768, 4096
+P22_WAVES = ((5, P22_WAVE), (10, P22_BUDGET))   # (b)'s two waves
+P22_REFERENCE = "ldpc_tpu_torch/cli/pbrl_probe_reference.json"
 # a cut-trained arm: one step of P21_SAMPLES frames (the programs' 30
 # epochs of 2048); every cut training's validation set cut to P_VAL frames
 # (the trainer's 640), in phases 15, 16, 17 and 20 too
@@ -2696,6 +2781,15 @@ def phase15(dev, card):
                 k4_err=errs["K4"])
 
 
+def stage_of(dec, T_):
+    """``dec`` cut to ``T_`` iterations as the simulator's stage 1 cuts it
+    (its options kept), or ``dec`` itself at its own depth."""
+    if T_ == dec.max_iterations:
+        return dec
+    return dataclasses.replace(dataclasses.replace(
+        dec, qc_options=None).truncated(T_), qc_options=dec.qc_options)
+
+
 def phase16_check(dev, card, name, dec, T_, B_, lean, gen,
                   snr=P16_CHECK_SNR, punct=None):
     """K1 against its plain version at one spec phase 16 launches (not
@@ -2708,9 +2802,7 @@ def phase16_check(dev, card, name, dec, T_, B_, lean, gen,
     |d posterior|, kernel ms)."""
     import ldpc_tpu_torch as lt
 
-    d = dec if T_ == dec.max_iterations else dataclasses.replace(
-        dataclasses.replace(dec, qc_options=None).truncated(T_),
-        qc_options=dec.qc_options)
+    d = stage_of(dec, T_)
     x = lt.awgn_llr(gen, torch.zeros((B_, dec.code.n), device=dev), snr)
     if punct is not None:
         x = lt.puncture_llr(x, punct)
@@ -3518,11 +3610,15 @@ def phase18_lift(dev, root, book, record):
 
 
 def phase18_spectrum(card, spectrum, root):
-    """(d): the worker's trapping-set spectra (``spectrum``'s result, or
-    computed here when it is None) against the JAX record."""
-    t0 = time.perf_counter()
-    rep, secs = spectrum_data() if spectrum is None else spectrum.get()
-    waited = time.perf_counter() - t0
+    """(d): the worker's trapping-set spectra against the JAX record;
+    ``spectrum`` is (report, host seconds, seconds run() waited for it),
+    and None computes them here."""
+    if spectrum is None:
+        t0 = time.perf_counter()
+        rep, secs = spectrum_data()
+        waited = time.perf_counter() - t0
+    else:
+        rep, secs, waited = spectrum
     with open(os.path.join(root, "experiments",
                            "trapping_spectrum_results.json")) as f:
         ref = json.load(f)
@@ -3534,7 +3630,7 @@ def phase18_spectrum(card, spectrum, root):
     where = ("here" if spectrum is None else
              "in the worker process beside phases 1-11")
     print(f"  (d) trapping_spectrum whole: {secs:.1f} s of host numpy "
-          f"{where}, waited {waited:.1f} s for it here  [{card}]")
+          f"{where}, waited {waited:.1f} s for it  [{card}]")
     if got != ref:
         raise AssertionError("the trapping-set spectra differ from "
                              "trapping_spectrum_results.json")
@@ -3542,9 +3638,10 @@ def phase18_spectrum(card, spectrum, root):
 
 def phase18(dev, card, spectrum=None):
     """The PBRL floor programs' twins at the programs' widths; returns K1's
-    launches and the largest posterior difference. ``spectrum`` is the
-    handle of :func:`spectrum_data` in the worker process; None runs it
-    here, after the campaigns (phase 18 alone)."""
+    launches and the largest posterior difference. ``spectrum`` is
+    :func:`spectrum_data`'s result from the worker process and the
+    seconds run() waited for it; None runs it here, after the campaigns
+    (phase 18 alone)."""
     from ldpc_tpu_torch.cli import pbrl_bc5 as bc5
     from ldpc_tpu_torch.cli import pbrl_lift_floor as lf
     from ldpc_tpu_torch.cli import pbrl_precode as pc
@@ -4558,6 +4655,52 @@ def beside_phase13(card):
     return p21_train_all(card), layered_step_launches()
 
 
+# phases 14-22 run in three processes (run()): these two lanes in worker
+# processes, phases 15, 19 and then 20 in the script's own (19 takes the
+# design of the worker that runs from the start, 18 its spectra)
+LANES = (("phase14", "phase16", "phase17"),
+         ("phase18", "phase21", "phase22"))
+LANE_TIMEOUT = 900
+
+
+def lane_phases(names):
+    return [n[len("phase"):] for n in names]
+
+
+def seconds_of(fn):
+    """Seconds that ``fn()`` takes."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def lane(card, jobs, log):
+    """Phases run in a worker process beside the script's own: ``jobs``
+    holds (phase function's name, extra arguments), each called as
+    ``phase(dev, card, *extra)`` on the card, one after another. The
+    process's standard output goes to the file ``log`` meanwhile, for
+    run() to print after. Returns ({name: the phase's result}, seconds,
+    peak device memory reserved in GiB)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sys.stdout.flush()
+    keep = os.dup(1)
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    os.close(fd)
+    try:
+        out = {}
+        for name, extra in jobs:
+            out[name] = globals()[name](dev, card, *extra)
+            torch.cuda.empty_cache()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_reserved() / 2 ** 30)
+    finally:
+        sys.stdout.flush()
+        os.dup2(keep, 1)
+        os.close(keep)
+
+
 def phase11_traced(card, traced):
     """Phase 11's launch count of a layered step, ``(launches, seconds)``
     from :func:`layered_step_launches`."""
@@ -4756,8 +4899,221 @@ def phase21(dev, card, trained):
     return dict(K1=k1, k1_err=err)
 
 
+P22_PROGRAMS = ("pbrl_bv10", "pbrl_cn_probe", "pbrl_vqp_sweep",
+                "pbrl_vqp_gamma")
+# (c): (program, its arms kept, SNR points) a main call
+P22_RUNS = (("pbrl_bv10", (P22_BOTH.split("/")[1],), (P22_SNR, P22_HI)),
+            ("pbrl_bv10", ("bc4_bv10", "bc5_bv10"), (P22_SNR,)),
+            ("pbrl_vqp_sweep", None, (P22_SNR,)),
+            ("pbrl_vqp_gamma", None, (P22_SNR,)),
+            ("pbrl_cn_probe", None, (P22_SNR,)))
+
+
+def p22_arms(dev):
+    """({"program/arm": decoder} of the four probe twins' ``build_arms``,
+    the punctured bit positions)."""
+    import importlib
+    arms = {}
+    for prog in P22_PROGRAMS:
+        got, punct = importlib.import_module(
+            f"ldpc_tpu_torch.cli.{prog}").build_arms(dev)
+        arms.update({f"{prog}/{k}": v for k, v in got.items()})
+    return arms, punct
+
+
+def phase22_identities(dev, card, arms, ref3, punct):
+    """(b): on one stage-1 (T=5, B=32768) and one stage-2 (T=10, B=4096)
+    wave of punctured bf16 LLRs through K1 (full output), each arm of
+    P22_REF3_CLASS against ``pbrl_wrcq``'s rcq-ref3 (``ref3``) and
+    bc5_vr96 against bc5_bv10: bits, success and iterations equal. Only
+    the posterior passes through the V2C quantizer, so the posteriors'
+    levels part; the values apart are printed. Not counted as the path's
+    launches."""
+    import ldpc_tpu_torch as lt
+    gen = torch.Generator(device=dev).manual_seed(222)
+    n = ref3.code.n
+    for T_, B_ in P22_WAVES:
+        x = lt.puncture_llr(lt.awgn_llr(gen, torch.zeros(
+            (B_, n), device=dev), P22_SNR), punct).to(torch.bfloat16)
+        for ref_name, ref, members in (
+                ("pbrl_wrcq/rcq-ref3", ref3, P22_REF3_CLASS),
+                (P22_BC5_CLASS[0], arms[P22_BC5_CLASS[0]],
+                 P22_BC5_CLASS[1:])):
+            want = uncounted(lambda: kernel_on(x, stage_of(ref, T_), T_,
+                                               False))
+            parts = []
+            for name in members:
+                got = uncounted(lambda: kernel_on(
+                    x, stage_of(arms[name], T_), T_, False))
+                torch.cuda.synchronize()
+                if not (torch.equal(got.bits, want.bits) and
+                        torch.equal(got.success, want.success) and
+                        torch.equal(got.iterations, want.iterations)):
+                    raise AssertionError(f"(b) {name} does not decode as "
+                                         f"{ref_name} at T={T_}, B={B_}")
+                parts.append(f"{name.split('/')[1]} "
+                             f"{int((got.posterior != want.posterior).sum()):,}")
+                del got
+            print(f"  (b) T={T_}, B={B_}: {len(members)} arms decode as "
+                  f"{ref_name} (bits, success and iterations equal; "
+                  f"success {want.success.float().mean().item():.4f}); "
+                  f"posterior values apart of {want.posterior.numel():,}: "
+                  + ", ".join(parts) + f"  [{card}]")
+            del want
+        del x
+        torch.cuda.empty_cache()
+
+
+def p22_refs(root):
+    """{"program/arm": {SNR: (errors, frames)}} of the honest references
+    (pbrl_honest_dev.json's rcq-ref3 for P22_REF3_CLASS; for the others
+    the entry of P22_REFERENCE that counts or names the arm), and the
+    retracted records."""
+    with open(os.path.join(root, "experiments", "pbrl_honest_dev.json")) as f:
+        ref3 = {float(s): (v["errors"], v["frames"])
+                for s, v in json.load(f)["rcq-ref3"].items()}
+    refs = dict.fromkeys(P22_REF3_CLASS, ref3)
+    with open(os.path.join(root, P22_REFERENCE)) as f:
+        for e in json.load(f).values():
+            if e["apart"] or e["frames"] < 262144:
+                raise AssertionError(f"reference {e}")
+            for arm in [e["counted_as"]] + e["same_decode"]:
+                refs[arm] = {e["snr"]: (e["errors"], e["frames"])}
+    retracted = {}
+    for prog in P22_PROGRAMS:
+        with open(os.path.join(root, "experiments",
+                               f"{prog}_results.json")) as f:
+            for arm, pts in json.load(f).items():
+                retracted[f"{prog}/{arm}"] = {
+                    float(s): (v["errors"], v["frames"])
+                    for s, v in pts.items()}
+    if set(refs) != set(retracted):
+        raise AssertionError(f"arms without a reference: "
+                             f"{set(retracted) ^ set(refs)}")
+    return refs, retracted
+
+
+def phase22_sweeps(dev, card, book, refs, retracted, checked):
+    """(c): P22_RUNS through each twin's ``main`` (arms cut by wrapping its
+    ``build_arms``), every point capped at P22_CAP frames; each point
+    beside its honest reference (Fisher-tested, :func:`p20_point`) and
+    its retracted record (printed). Fails when a wave of an arm whose
+    whole decode is not in ``checked`` fell back. Returns K1's
+    launches."""
+    import importlib
+    import logging
+    level = logging.getLogger().level
+    reset_counts()
+    t0 = time.perf_counter()
+    with SimWatch() as w:
+        names = []
+        for i, (prog, keep, snrs) in enumerate(P22_RUNS):
+            mod = importlib.import_module(f"ldpc_tpu_torch.cli.{prog}")
+            real = mod.build_arms
+
+            def cut(device="cuda", real=real, keep=keep):
+                arms, punct = real(device)
+                return ({k: v for k, v in arms.items()
+                         if keep is None or k in keep}, punct)
+            mod.build_arms = cut
+            try:
+                res = mod.main(frames=P22_CAP, snrs=snrs,
+                               out_path=f"{prog}_{i}.json", device=dev)
+            finally:
+                mod.build_arms = real
+                logging.getLogger().setLevel(level)
+            names += [f"{prog}/{arm}" for arm in res for _ in snrs]
+    torch.cuda.synchronize()
+    k1 = w.launches()
+    only_k1("(c)", read_counts(), k1)
+    print(f"  (c) the twins' main cut: {len(names)} points of 28, each "
+          f"capped at {P22_CAP:,} frames (the programs' 20,000,000); "
+          f"{P22_HI} dB kept for {P22_BOTH} alone; waves {P22_WAVE}, "
+          f"budget {P22_BUDGET}, 100 errors; K1 launches {k1}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, call in zip(names, w.calls, strict=True):
+        snr = round(call[1], 2)
+        ref = refs[name].get(snr)
+        p20_point(book, "c", name, call, ref,
+                  why=None if ref else "no honest reference at this SNR")
+        e, f = retracted[name][snr]
+        print(f"  (c) {name} @ {snr:.2f} dB: retracted record {e}/{f} "
+              f"(FER {e / f:.4g}; experiments/{name.split('/')[0]}"
+              f"_results.json, before the decision-bias fix), not tested")
+        if call[3].get("fallback") and name not in checked:
+            raise AssertionError(f"(c) {name} fell back unchecked: "
+                                 f"{call[3]}")
+    return k1
+
+
+def phase22(dev, card):
+    """The PBRL V2C/CN probe twins at the programs' widths; returns K1's
+    launches and the largest posterior difference."""
+    import tempfile
+
+    from ldpc_tpu_torch.cli import pbrl_wrcq as pw
+    from ldpc_tpu_torch.decode import fused
+
+    print("[22 PBRL V2C/CN probe twins]")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    refs, retracted = p22_refs(root)
+    arms, punct = p22_arms(dev)
+    book, err = FisherBook(card), 0.0
+    gen = torch.Generator(device=dev).manual_seed(22)
+    checked = set()
+    for name, shapes in P22_CHECKS:
+        dec = arms[name]
+        e, _ = phase16_checks(dev, card, [
+            (name, dec, T_, B_, False) for T_, B_ in shapes], gen, P22_SNR,
+            punct)
+        err = max(err, e)
+        if (10, P22_WAVE) in shapes:
+            checked.add(name)
+        spec = dec.spec
+        print(k1_facts(dec, card) + f"; {name}: {spec.q_levels}-level C2V "
+              f"and {spec.v2c_levels}-level V2C quantizers, closed form "
+              f"{closed_of(dec)}")
+        torch.cuda.empty_cache()
+    print(f"  (a) {time.perf_counter() - t_phase:.1f} s")
+    ref3 = pw.build_arms(("rcq-ref3",), dev)[0]["rcq-ref3"]
+    phase22_identities(dev, card, arms, ref3, punct)
+    n = ref3.code.n
+    del arms, ref3
+    torch.cuda.empty_cache()
+    print(f"  (a, b) {time.perf_counter() - t_phase:.1f} s")
+    cwd = os.getcwd()
+    seen, real = p20_punctured(dev, {n: punct})
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.chdir(tmp)
+        try:
+            k1 = phase22_sweeps(dev, card, book, refs, retracted, checked)
+        finally:
+            fused._launch = real
+            os.chdir(cwd)
+    nonzero = int(seen["nonzero"])
+    print(f"  (c) {seen['calls']} K1 launches on the precoded code, "
+          f"{nonzero} nonzero LLRs at its 86 punctured positions")
+    if nonzero or seen["calls"] != k1:
+        raise AssertionError("a punctured LLR reached K1 nonzero, or a "
+                             "launch went uncounted")
+    secs = time.perf_counter() - t_phase
+    print(f"  {book.tested} points Fisher-tested against the honest "
+          f"references; K1 launches in phase 22 {k1}, no K4, K5 or K6; "
+          f"phase {secs:.1f} s (limit {P22_LIMIT} s)")
+    if book.failed:
+        raise AssertionError(f"points off the honest references (p < "
+                             f"{P15_P}): {book.failed}")
+    if book.tested != 15:
+        raise AssertionError(f"{book.tested} points tested, want 15")
+    if secs > P22_LIMIT:
+        raise AssertionError(f"phase 22 took {secs:.1f} s, over "
+                             f"{P22_LIMIT} s")
+    return dict(K1=k1, k1_err=err)
+
+
 def run(design, de, spectrum):
-    """Phases 1-21; ``design``, ``de`` and ``spectrum`` are the result
+    """Phases 1-22; ``design``, ``de`` and ``spectrum`` are the result
     handles of :func:`bench_design`, :func:`de_data` and
     :func:`spectrum_data` running in a worker process."""
     import ldpc_tpu_torch as lt
@@ -4771,11 +5127,17 @@ def run(design, de, spectrum):
     print(f"[1 device] {card}  (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
 
+    # phase 10 runs on the card while nvcc builds the library in a thread:
+    # it launches no kernel of the library (and fails if it does)
     t0 = time.perf_counter()
     fresh = not _build.library_path().exists()
-    _build.load_library()
-    print(f"[2 build] {time.perf_counter() - t0:.1f} s "
-          f"({'built' if fresh else 'cached'}) {_build.library_path().name}")
+    with concurrent.futures.ThreadPoolExecutor(1) as nvcc:
+        built = nvcc.submit(seconds_of, _build.load_library)
+        phase10(dev, card)
+        torch.cuda.empty_cache()
+    print(f"[2 build] {built.result():.1f} s "
+          f"({'built' if fresh else 'cached'}) {_build.library_path().name}"
+          f", beside phase 10 ({time.perf_counter() - t0:.1f} s for both)")
     for name, st in ptxas_stats(
             _build.library_path().with_suffix(".log")).items():
         print(f"  ptxas: {name}: {st.get('registers')} registers, spill "
@@ -5002,10 +5364,11 @@ def run(design, de, spectrum):
                                  f"{res.total_frames[i]}) at {snr} dB is "
                                  "off the JAX package's curve")
 
-    # the first wave's first 64 frames against the plain path on the CPU
+    # the first wave's first SIM_CPU frames against the plain path on the
+    # CPU
     sub = lt.awgn_llr(point_generator(cfg.seed, 0, dev),
                       torch.zeros((SIM_WAVE, zdec.code.n), device=dev),
-                      torch.tensor(snrs[0], device=dev))[:64]
+                      torch.tensor(snrs[0], device=dev))[:SIM_CPU]
     two = lt.make_two_checkpoint_decoder(zdec, t1=SIM_T1,
                                          survivor_budget=SIM_BUDGET)
     g_out, g_n = two(sub)
@@ -5015,7 +5378,8 @@ def run(design, de, spectrum):
             g_out.success.cpu(), c_out.success):
         raise AssertionError(f"simulator wave vs plain on the CPU: survivors "
                              f"{int(g_n)} vs {int(c_n)}, bits {agree}")
-    print(f"  first 64 frames of the first wave vs the CPU plain path: "
+    print(f"  first {SIM_CPU} frames of the first wave vs the CPU plain "
+          f"path: "
           f"survivors {int(g_n)}, bits agree {agree:.6f}, success equal")
 
     del sub, g_out, c_out
@@ -5025,8 +5389,6 @@ def run(design, de, spectrum):
     rc_counts = phase8(zdec, dev, card)
     torch.cuda.empty_cache()
     phase9(dev, card)
-    torch.cuda.empty_cache()
-    phase10(dev, card)
     torch.cuda.empty_cache()
     phase11(dev, card)
     torch.cuda.empty_cache()
@@ -5047,21 +5409,56 @@ def run(design, de, spectrum):
           f"13")
     phase11_traced(card, traced)
     torch.cuda.empty_cache()
-    p14 = phase14(dev, card)
-    torch.cuda.empty_cache()
-    p15 = phase15(dev, card)
-    torch.cuda.empty_cache()
-    p16 = phase16(dev, card)
-    torch.cuda.empty_cache()
-    p17 = phase17(dev, card)
-    torch.cuda.empty_cache()
-    p18 = phase18(dev, card, spectrum)
-    torch.cuda.empty_cache()
-    p19 = phase19(dev, card, design.get()[:3])
-    torch.cuda.empty_cache()
-    p20 = phase20(dev, card)
-    torch.cuda.empty_cache()
-    p21 = phase21(dev, card, p21_trained)
+
+    # phases 14-22 in three processes: 15, 19 and then 20 here, each of
+    # LANES in a worker process of its own; phase 18 there takes the
+    # spectra of the worker that runs from the start. A lane's output is
+    # printed after phase 20, and a phase failing there fails the script
+    # as here
+    import tempfile
+    t0 = time.perf_counter()
+    spectra = (*spectrum.get(), time.perf_counter() - t0)
+    extra = dict(phase18=(spectra,), phase21=(p21_trained,))
+    root = os.path.dirname(os.path.abspath(__file__))
+    each = " and ".join(", ".join(lane_phases(names)) for names in LANES)
+    print(f"[lanes] phases {each}, each lane in a worker process of its "
+          f"own, beside phases 15, 19 and then 20 here; their output "
+          f"follows phase 20's")
+    t_lanes = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as logs, \
+            multiprocessing.get_context("spawn").Pool(len(LANES)) as pool:
+        paths = [os.path.join(logs, f"lane{i}.txt")
+                 for i in range(len(LANES))]
+        jobs = [pool.apply_async(lane, (card, [(n, extra.get(n, ()))
+                                               for n in names], path))
+                for names, path in zip(LANES, paths)]
+        try:
+            p15 = phase15(dev, card)
+            torch.cuda.empty_cache()
+            p19 = phase19(dev, card, design.get()[:3])
+            torch.cuda.empty_cache()
+            p20 = phase20(dev, card)
+            torch.cuda.empty_cache()
+            here = time.perf_counter() - t_lanes
+            t0 = time.perf_counter()
+            done = [job.get(timeout=LANE_TIMEOUT) for job in jobs]
+        finally:
+            for names, path in zip(LANES, paths):
+                print(f"[lane] phases {', '.join(lane_phases(names))}, in a "
+                      f"worker process:")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        print(f.read(), end="", flush=True)
+    results = {}
+    for names, (res, secs_lane, peak) in zip(LANES, done):
+        results.update(res)
+        print(f"  lane {', '.join(lane_phases(names))}: {secs_lane:.1f} s, "
+              f"peak memory reserved {peak:.2f} GiB  [{card}]")
+    print(f"  phases 15, 19 and 20 here {here:.1f} s, then waited "
+          f"{time.perf_counter() - t0:.1f} s for the lanes; phases 14-22 "
+          f"{time.perf_counter() - t_lanes:.1f} s")
+    p14, p16, p17, p18, p21, p22 = (results[f"phase{i}"]
+                                    for i in (14, 16, 17, 18, 21, 22))
 
     print(f"[script] {time.perf_counter() - T_START:.1f} s from the start")
     print(card)
@@ -5073,10 +5470,11 @@ def run(design, de, spectrum):
         "replaces": "ldpc_tpu/decode/pallas_fused.py:467",
         "launches": (launches + p12_launches + p13["K1"] + p14["K1"] +
                      p15["K1"] + p16["K1"] + p17["K1"] + p18["K1"] +
-                     p19["K1"] + p20["K1"] + p21["K1"]),
+                     p19["K1"] + p20["K1"] + p21["K1"] + p22["K1"]),
         "max_abs_err": max(max_err, p12_err, p14["k1_err"], p15["k1_err"],
                            p16["k1_err"], p17["k1_err"], p18["k1_err"],
-                           p19["k1_err"], p20["k1_err"], p21["k1_err"]),
+                           p19["k1_err"], p20["k1_err"], p21["k1_err"],
+                           p22["k1_err"]),
         "ms": times[256][0],
         "plain_ms": times[256][1],
         "bound_ms": k1_bound[0],

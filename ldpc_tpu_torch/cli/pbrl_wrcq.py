@@ -152,7 +152,9 @@ def punctured_bits(lift, punct_cols):
 
 def _mk_setup(device="cuda"):
     """(``mk(kind, qp, ...)`` -> decoder, punctured bit positions, code)
-    on the precoded code (``pbrl_wrcq.py:72-109``)."""
+    on the precoded code (``pbrl_wrcq.py:72-109``); ``mk``'s ``bv`` (8 in
+    this program) is the V2C quantizer's width of the probe programs
+    (``pbrl_bv10``)."""
     base, lift, punct_cols = lt.create_pbrl_qc_protograph(
         k=K, rate=RATE, precode=True)
     qc = lt.build_qc_graph(base, lift)
@@ -160,7 +162,7 @@ def _mk_setup(device="cuda"):
     fused = fused_options(device)
     common = dict(max_iterations=T, qc=qc, layered=True, device=device)
 
-    def mk(kind, qp, trained=None, vqp=VQP8, per_layer=False, bc=4):
+    def mk(kind, qp, trained=None, vqp=VQP8, per_layer=False, bc=4, bv=8):
         kw = ({} if kind == "rcq"
               else dict(sharing_type=2, per_layer=per_layer))
         common["qc_options"] = dict(fused)
@@ -170,7 +172,7 @@ def _mk_setup(device="cuda"):
             return dec.replace_weights({
                 "beta": torch.full_like(dec.weights["beta"], 0.5),
                 "alpha": torch.zeros_like(dec.weights["alpha"])})
-        dec = lt.make_decoder(code, kind=kind, bc=bc, bv=8,
+        dec = lt.make_decoder(code, kind=kind, bc=bc, bv=bv,
                               quantizer_params=qp, v2c_quantizer_params=vqp,
                               closed_qdq=(bc >= 5), **common, **kw)
         if trained is not None:

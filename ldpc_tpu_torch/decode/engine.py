@@ -404,7 +404,13 @@ def _cn_loo(msgs, mask, iota, min2_where_inf: bool):
         mag = torch.where(mask, mag, _INF)
         neg = neg & mask
     min1 = mag.amin(dim=1, keepdim=True)
-    is_min = iota == mag.argmin(dim=1, keepdim=True)
+    if mag.device.type == "cpu":
+        # the CPU's argmin over a middle dim is ~3x slower than over a
+        # contiguous last one; both pick the same first minimum
+        arg = mag.transpose(1, 2).contiguous().argmin(dim=2).unsqueeze(1)
+    else:
+        arg = mag.argmin(dim=1, keepdim=True)
+    is_min = iota == arg
     if msgs.shape[1] > 1:
         min2 = torch.where(is_min, _INF, mag).amin(dim=1, keepdim=True)
         if min2_where_inf:

@@ -13,12 +13,13 @@ the Gaussian likelihood ratio ``w = exp((2 d.n - |d|^2) / (2 sigma^2))``
 sum over classes is the union-bound floor (Richardson, "Error floors of
 LDPC codes", Allerton 2003).
 
-The arithmetic is the JAX package's: float32 noise, float32 ``log_w`` and
-float32 ``exp``, then the sums in float64 (on the device, one host read
-per batch). Randomness comes from ``torch.Generator``s derived from a
-``seed`` (one per batch, one seed per class) in place of JAX's key
-splits, so estimates agree with the JAX package's statistically; on
-equal LLRs the event indicators are equal.
+The arithmetic is the JAX package's: float32 noise drawn with
+``jax.random.normal``'s transform (``channel.standard_normal``), float32
+``log_w`` and float32 ``exp``, then the sums in float64 (on the device,
+one host read per batch). Randomness comes from ``torch.Generator``s
+derived from a ``seed`` (one per batch, one seed per class) in place of
+JAX's key splits, so estimates agree with the JAX package's
+statistically; on equal LLRs the event indicators are equal.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-from ldpc_tpu_torch.channel import puncture_llr
+from ldpc_tpu_torch.channel import puncture_llr, standard_normal
 from ldpc_tpu_torch.decode.variants import resolve_device
 
 __all__ = ["biased_awgn_llr", "biased_llr_from_noise",
@@ -92,10 +93,8 @@ def biased_awgn_llr(gen: torch.Generator, batch: int, n: int, snr_db: float,
     only transmitted coordinates), and shifting one raises.
     """
     sigma2 = 10.0 ** (-float(snr_db) / 10.0)
-    noise = torch.randn((batch, n), generator=gen, dtype=torch.float32,
-                        device=gen.device)
-    noise = noise * torch.sqrt(torch.full((), sigma2, dtype=torch.float32,
-                                          device=gen.device))
+    noise = standard_normal(gen, (batch, n), gen.device) * torch.sqrt(
+        torch.full((), sigma2, dtype=torch.float32, device=gen.device))
     return biased_llr_from_noise(noise, snr_db, positions, shift,
                                  punctured=punctured, dtype=dtype)
 

@@ -29,6 +29,7 @@ from ldpc_tpu.decode.bucketed_engine import \
 from ldpc_tpu.decode.bucketed_engine import \
     build_bucketed_graph as jax_build_bucketed_graph
 from ldpc_tpu_torch.sim.montecarlo import _build_wave
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import assert_same_fields, channel_llr, general_pair
 
 T = 8

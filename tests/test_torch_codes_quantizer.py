@@ -21,6 +21,7 @@ import ldpc_tpu_torch as lt
 from ldpc_tpu import quantizer as jq
 from ldpc_tpu.decode.qc_engine import build_qc_graph as jax_build_qc_graph
 from ldpc_tpu_torch import quantizer as tq
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import assert_same_fields as _assert_same_fields
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

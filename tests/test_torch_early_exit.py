@@ -15,6 +15,7 @@ import torch
 import ldpc_tpu_torch as lt
 from ldpc_tpu.decode.early_exit import \
     make_two_checkpoint_decoder as jax_two_checkpoint
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import channel_llr, decoder_pair, make_base
 
 T, T1, B = 6, 3, 40

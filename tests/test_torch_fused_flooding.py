@@ -22,6 +22,7 @@ import torch
 import ldpc_tpu_torch as lt
 from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch
 from ldpc_tpu_torch.decode import engine, qc_engine
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (SMALL_KINDS, channel_llr, decoder_pair,
                                 make_base)
 

@@ -22,6 +22,7 @@ import ldpc_tpu_torch as lt
 from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch_layered
 from ldpc_tpu_torch.decode import fused
 from ldpc_tpu_torch.decode.engine import qdq_mode
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import channel_llr, decoder_pair, make_base
 
 T = 5

@@ -26,6 +26,7 @@ from ldpc_tpu.decode.oracle import oracle_decode as jax_oracle
 from ldpc_tpu_torch.decode.oracle import oracle_decode
 from ldpc_tpu_torch.quantizer import (QDQ_SIGN_TINY, phase_schedule,
                                       power_thresholds)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import channel_llr, general_pair
 
 T = 8

@@ -20,6 +20,7 @@ import torch
 import ldpc_tpu_torch as lt
 from ldpc_tpu_torch.decode import engine, fused, qc_rowcol
 from ldpc_tpu_torch.quantizer import QDQ_SIGN_TINY, power_qdq, uniform_qdq
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import SMALL_KINDS, channel_llr, make_base
 
 f32 = torch.float32

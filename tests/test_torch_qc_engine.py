@@ -28,6 +28,7 @@ import ldpc_tpu_torch as lt
 from ldpc_tpu.decode.qc_engine import qc_decode_batch as jax_flooding
 from ldpc_tpu.decode.qc_engine import \
     qc_decode_batch_layered as jax_layered
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (SMALL_KINDS, ZOO_LIKE, channel_llr,
                                 decoder_pair, make_base)
 

@@ -30,6 +30,7 @@ from ldpc_tpu.decode.pallas_qc import \
     qc_pallas_decode_batch as jax_rowcol
 from ldpc_tpu.decode.qc_engine import _per_block_weights
 from ldpc_tpu_torch.decode import engine, qc_rowcol
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (SMALL_KINDS, ZOO_LIKE, channel_llr,
                                 decoder_pair, make_base)
 

@@ -690,7 +690,8 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 leaked = sorted(k for k in sys.modules if k == "ldpc_tpu" or
                 k.startswith("ldpc_tpu."))
-print(json.dumps(dict(count=len(names), bad=bad, leaked=leaked)))
+print(json.dumps(dict(count=len(names), names=names, bad=bad,
+                      leaked=leaked)))
 """
     r = subprocess.run([sys.executable, "-c", code, REPO],
                        capture_output=True, text=True, cwd=REPO,
@@ -698,4 +699,7 @@ print(json.dumps(dict(count=len(names), bad=bad, leaked=leaked)))
     assert r.returncode == 0, r.stderr[-2000:]
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["count"] >= 60
+    assert {f"ldpc_tpu_torch.cli.{m}" for m in (
+        "pbrl_bv10", "pbrl_cn_probe", "pbrl_vqp_sweep",
+        "pbrl_vqp_gamma")} <= set(got["names"])
     assert got["bad"] == [] and got["leaked"] == []

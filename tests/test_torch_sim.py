@@ -28,6 +28,7 @@ from ldpc_tpu.sim import LDPCSimulator as JaxSimulator
 from ldpc_tpu.sim import SimulationConfig as JaxConfig
 from ldpc_tpu.sim import SimulationResult as JaxResult
 from ldpc_tpu_torch.sim.montecarlo import _build_wave
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import channel_llr, decoder_pair
 
 BASE = np.array([[0, 3, 5, 7, 2], [4, 1, 6, 0, 3]])

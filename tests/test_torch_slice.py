@@ -22,6 +22,7 @@ import ldpc_tpu
 import ldpc_tpu_torch as lt
 from ldpc_tpu.decode.qc_engine import build_qc_graph as jax_build_qc_graph
 from ldpc_tpu_torch.parallel import make_mesh
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import channel_llr, make_base
 
 T, T1 = 6, 3

@@ -32,6 +32,7 @@ import functools
 import json
 import logging
 import os
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +46,9 @@ import experiments.pbrl_honest_train as jax_ht
 import experiments.pbrl_wrcq as jax_pw
 import experiments.ladder_bc4 as jax_lb
 import experiments.pbrl_bc5 as jax_bc5
+import experiments.pbrl_bv10 as jax_bv10
+import experiments.pbrl_vqp_gamma as jax_vqg
+import experiments.pbrl_vqp_sweep as jax_vqs
 import experiments.pbrl_rates as jax_pr
 import experiments.pbrl_lift_floor as jax_lf
 import experiments.pbrl_precode as jax_pc
@@ -67,7 +71,9 @@ from ldpc_tpu.sim import SimulationResult as JaxSimulationResult
 from ldpc_tpu_torch.cli import bc4_refine, dde_ladders, ladder_bc4
 from ldpc_tpu_torch.cli import deep_fer, floor_is, pbrl_bc5
 from ldpc_tpu_torch.cli import pbrl_honest_train, pbrl_wrcq, train_matched
+from ldpc_tpu_torch.cli import pbrl_bv10, pbrl_cn_probe, pbrl_vqp_gamma
 from ldpc_tpu_torch.cli import pbrl_lift_floor, pbrl_precode, pbrl_rates
+from ldpc_tpu_torch.cli import pbrl_vqp_sweep
 from ldpc_tpu_torch.cli import quantizer_count, tighten89
 from ldpc_tpu_torch.cli import rate_specific as rs
 from ldpc_tpu_torch.cli import rate_specific_deep as rsd
@@ -267,7 +273,16 @@ FLOOR_TWINS = {"pbrl_bc5": (pbrl_bc5, jax_bc5),
                # in tests/test_torch_trio_programs.py
                "pbrl_wrcq": (pbrl_wrcq, jax_pw),
                "train_matched": (train_matched, jax_tm),
-               "pbrl_honest_train": (pbrl_honest_train, jax_ht)}
+               "pbrl_honest_train": (pbrl_honest_train, jax_ht),
+               # the PBRL V2C/CN probes, whose other tests are in
+               # tests/test_torch_probe_programs.py (pbrl_cn_probe runs at
+               # import: only its source is read)
+               "pbrl_bv10": (pbrl_bv10, jax_bv10),
+               "pbrl_cn_probe": (pbrl_cn_probe, SimpleNamespace(
+                   __file__=os.path.join(os.path.dirname(jax_bv10.__file__),
+                                         "pbrl_cn_probe.py"))),
+               "pbrl_vqp_sweep": (pbrl_vqp_sweep, jax_vqs),
+               "pbrl_vqp_gamma": (pbrl_vqp_gamma, jax_vqg)}
 # options a twin adds besides --device: quantizer_count's deep phase reads
 # rcq-q2's ladder from --design (the program's fixed path by default),
 # pbrl_rates' deep and train phases and pbrl_wrcq's dde ladder the twin's

@@ -23,6 +23,7 @@ import torch
 import ldpc_tpu
 import ldpc_tpu_torch as lt
 from ldpc_tpu import zoo as jzoo
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import assert_same_fields, make_base
 
 ENTRIES = sorted(os.path.basename(p) for p, _ in jzoo.list_pretrained())
